@@ -1,0 +1,166 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+On the CPU each port wrapper takes its plain PyTorch version (the CUDA
+kernels are held against those on the card by chip_smoke.py). The JAX side
+runs the Pallas kernels in interpret mode, as tests/test_kernels.py does.
+Inputs come from numpy seeds. fp32 throughout; tolerance rtol 1e-3 /
+atol 1e-5 (the repo's bar) unless a test states a tighter one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from calipsync_tpu.kernels import cross_attention as jax_attn
+from calipsync_tpu.kernels import depthwise as jax_dw
+from calipsync_tpu.kernels import fused_ir as jax_ir
+from calipsync_tpu_torch.kernels import (cross_attention, depthwise3x3,
+                                         fused_inverted_residual,
+                                         launch_counts)
+from calipsync_tpu_torch.kernels.depthwise import fold_bn
+from calipsync_tpu_torch.kernels.fused_ir import fold_ir_params
+
+RTOL, ATOL = 1e-3, 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    """Run Pallas kernels in interpreter mode on the CPU test backend."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(out, ref, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("shape,stride", [
+    ((2, 9, 7, 12), 1),    # odd spatial sizes, C not a multiple of 8
+    ((2, 9, 7, 12), 2),
+    ((1, 16, 16, 64), 2),
+    ((2, 10, 10, 24), 1),
+])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_depthwise_matches_pallas(shape, stride, blocked):
+    rng = np.random.default_rng(sum(shape) + stride)
+    c = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (rng.standard_normal((3, 3, c)) * 0.3).astype(np.float32)
+    s = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    b = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    fn = jax_dw.depthwise3x3_blocked if blocked else jax_dw.depthwise3x3
+    ref = fn(jnp.asarray(x), jnp.asarray(k), jnp.asarray(s), jnp.asarray(b),
+             stride=stride)
+    out = depthwise3x3(_t(x), _t(k), _t(s), _t(b), stride=stride)
+    assert tuple(out.shape) == tuple(ref.shape)
+    _close(out, ref)
+
+
+def _ir_weights(rng, cin, ch, cout):
+    return (rng.standard_normal((cin, ch)).astype(np.float32) * 0.3,
+            rng.standard_normal(ch).astype(np.float32) * 0.1,
+            rng.standard_normal((9, ch)).astype(np.float32) * 0.3,
+            rng.standard_normal(ch).astype(np.float32) * 0.1,
+            rng.standard_normal((ch, cout)).astype(np.float32) * 0.3,
+            rng.standard_normal(cout).astype(np.float32) * 0.1)
+
+
+@pytest.mark.parametrize("shape,ch,cout,residual,block_h", [
+    ((2, 8, 8, 6), 12, 32, False, None),    # the inc stem's widths
+    ((2, 12, 10, 16), 32, 16, True, 4),     # tile split across rows
+    ((1, 9, 11, 12), 24, 12, True, 3),      # odd sizes, residual
+    ((2, 7, 5, 10), 20, 6, False, 7),       # C not a multiple of 8
+])
+def test_fused_ir_matches_pallas(shape, ch, cout, residual, block_h):
+    rng = np.random.default_rng(ch + cout)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = _ir_weights(rng, shape[-1], ch, cout)
+    ref = jax_ir.fused_inverted_residual(
+        jnp.asarray(x), *map(jnp.asarray, w), residual=residual,
+        block_h=block_h)
+    out = fused_inverted_residual(_t(x), *map(_t, w), residual=residual)
+    assert tuple(out.shape) == tuple(ref.shape)
+    _close(out, ref)
+
+
+def test_fused_ir_edges_are_zero_padded_hidden():
+    """With a large b1, leaky(b1) at the halo would differ from the zero
+    padding the depthwise conv takes; both sides must agree on zeros."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 6, 6, 4)).astype(np.float32)
+    w = list(_ir_weights(rng, 4, 8, 4))
+    w[1] = np.full(8, 3.0, np.float32)
+    ref = jax_ir.fused_inverted_residual_reference(
+        jnp.asarray(x), *map(jnp.asarray, w), residual=True)
+    out = fused_inverted_residual(_t(x), *map(_t, w), residual=True)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("b,n,d,c", [(2, 100, 64, 512), (3, 37, 24, 40)])
+def test_cross_attention_matches_pallas(b, n, d, c):
+    rng = np.random.default_rng(n)
+    q = (rng.standard_normal((b, n, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, n, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, n, c)).astype(np.float32)
+    ref = jax_attn.cross_attention(*map(jnp.asarray, (q, k, v)))
+    out = cross_attention(_t(q), _t(k), _t(v))
+    assert tuple(out.shape) == (b, n, c)
+    _close(out, ref)
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    """On CPU tensors the wrappers take the plain versions and count no
+    launch."""
+    before = launch_counts()
+    x = torch.zeros((1, 4, 4, 8))
+    depthwise3x3(x, torch.zeros(3, 3, 8))
+    fused_inverted_residual(x, torch.zeros(8, 8), torch.zeros(8),
+                            torch.zeros(9, 8), torch.zeros(8),
+                            torch.zeros(8, 8), torch.zeros(8))
+    cross_attention(torch.zeros(1, 5, 4), torch.zeros(1, 5, 4),
+                    torch.zeros(1, 5, 6))
+    assert launch_counts() == before
+
+
+def _bn_np(rng, c):
+    return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+            "bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}, \
+           {"mean": (rng.standard_normal(c) * 0.2).astype(np.float32),
+            "var": rng.uniform(0.25, 1.75, c).astype(np.float32)}
+
+
+def test_bn_folds_match_jax():
+    rng = np.random.default_rng(4)
+    cin, ch, cout = 6, 12, 10
+    kernels = {"expand": (1, 1, cin, ch), "depthwise": (3, 3, 1, ch),
+               "project": (1, 1, ch, cout)}
+    params, stats, torch_stages = {}, {}, []
+    for name, kshape in kernels.items():
+        k = rng.standard_normal(kshape).astype(np.float32)
+        p, s = _bn_np(rng, kshape[-1])
+        params[name] = {"conv": {"kernel": k}, "bn": p}
+        stats[name] = {"bn": s}
+        torch_stages.append((_t(k.transpose(3, 2, 0, 1).copy()),
+                             _t(p["scale"]), _t(p["bias"]), _t(s["mean"]),
+                             _t(s["var"])))
+    ref = jax_ir.fold_ir_params(params, stats)
+    out = fold_ir_params(*torch_stages)
+    for o, r in zip(out, ref):
+        assert tuple(o.shape) == tuple(r.shape)
+        _close(o, r, rtol=1e-6, atol=1e-7)  # a few fp32 ulps apart
+
+    p, s = _bn_np(rng, 16)
+    ref = jax_dw.fold_bn(p, s)
+    out = fold_bn(_t(p["scale"]), _t(p["bias"]), _t(s["mean"]),
+                  _t(s["var"]))
+    for o, r in zip(out, ref):
+        _close(o, r, rtol=1e-6, atol=1e-7)
