@@ -45,14 +45,20 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(force: bool = False) -> tuple[pathlib.Path, float]:
+def build(force: bool = False,
+          defines: tuple[str, ...] = ()) -> tuple[pathlib.Path, float]:
     """Compile and link the kernels if the library is missing or stale.
     Returns (library path, seconds spent building; 0.0 when up to date).
+    ``defines`` (``-D`` macros) build another library beside the main one,
+    named after them, as ``kernels/bench.py`` does for its bisect variants.
     The compiler's output, register and shared-memory use included, goes
-    to ``build/nvcc.log``."""
+    to ``build/nvcc.log`` (``build/<library>.nvcc.log`` for another
+    library)."""
+    lib_name = LIB_NAME.replace(
+        ".so", "".join(f".{d.lower()}" for d in defines) + ".so")
     sources = sorted(CSRC.glob("*.cu"))
     inputs = sources + sorted(CSRC.glob("*.cuh"))
-    lib = BUILD_DIR / LIB_NAME
+    lib = BUILD_DIR / lib_name
     newest = max(p.stat().st_mtime for p in inputs)
     if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib, 0.0
@@ -61,7 +67,8 @@ def build(force: bool = False) -> tuple[pathlib.Path, float]:
     nvcc = nvcc_path()
     tag = f"{os.getpid()}"
     objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", str(s), "-o", str(o)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objs)]
@@ -71,10 +78,11 @@ def build(force: bool = False) -> tuple[pathlib.Path, float]:
         logs.append(f"== {s.name}\n{out}")
         if p.returncode:
             failed.append(s.name)
-    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    log_name = "nvcc.log" if lib_name == LIB_NAME else f"{lib_name}.nvcc.log"
+    (BUILD_DIR / log_name).write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    tmp = BUILD_DIR / f"{lib_name}.{tag}"
     link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                            "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)

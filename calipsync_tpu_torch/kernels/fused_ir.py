@@ -64,7 +64,7 @@ def _kernel_fns():
     global _FN, _SMEM
     if _FN is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _SMEM = _build.function("calipsync_fused_ir_smem", [i, i, i],
+        _SMEM = _build.function("calipsync_fused_ir_smem", [i] * 6,
                                 restype=ctypes.c_longlong)
         _FN = _build.function("calipsync_fused_ir",
                               [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
@@ -104,28 +104,18 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
     dtype, dev = x.dtype, x.device
     code = _build.dtype_code(dtype)
     fn, smem = _kernel_fns()
-    need = smem(cin, cout, code)
-    if need < 0:
+    need = smem(h, w, cin, ch, cout, code)
+    if need == -1:
         raise ValueError(f"fused_inverted_residual: the {dtype} kernel takes "
                          f"Cout <= 128, not {cout}")
-    if need > MAX_SMEM:
-        raise ValueError(f"fused_inverted_residual: Cin={cin}, Cout={cout} "
-                         f"need {need} bytes of shared memory per block, "
-                         f"more than the card's {MAX_SMEM}")
+    if need < 0 or need > MAX_SMEM:
+        raise ValueError(f"fused_inverted_residual: no tiling of Cin={cin}, "
+                         f"Cout={cout} fits in the card's {MAX_SMEM} bytes "
+                         f"of shared memory per block")
 
-    def cast(t, dt):
-        return t.to(dev, dt).contiguous()
-
-    # the kernel reads w1 and w2 transposed; a no-copy view for weights
-    # from fold_ir_params
-    w1_, kd_, w2_ = (cast(w1.t(), dtype), cast(kd.reshape(9, ch), dtype),
-                     cast(w2.t(), dtype))
-    b1_, bd_, b2_ = (cast(b1.reshape(ch), torch.float32),
-                     cast(bd.reshape(ch), torch.float32),
-                     cast(b2.reshape(cout), torch.float32))
+    weights = kernel_weights(x, w1, b1, kd, bd, w2, b2)
     out = torch.empty((b, h, w, cout), dtype=dtype, device=dev)
-    status = fn(x.data_ptr(), w1_.data_ptr(), b1_.data_ptr(), kd_.data_ptr(),
-                bd_.data_ptr(), w2_.data_ptr(), b2_.data_ptr(),
+    status = fn(x.data_ptr(), *(t.data_ptr() for t in weights),
                 out.data_ptr(), code, b, h, w, cin, ch, cout, int(residual),
                 LEAKY_SLOPE, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "fused_inverted_residual")
@@ -134,6 +124,22 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
 
 
 fused_inverted_residual.launches = 0
+
+
+def kernel_weights(x, w1, b1, kd, bd, w2, b2) -> tuple:
+    """The weights in the layout and order the kernel reads: w1t (Ch,Cin),
+    b1, kd (9,Ch), bd, w2t (Cout,Ch), b2; the matrices in x.dtype, the
+    biases fp32, all contiguous on x's device (a no-copy view for weights
+    from fold_ir_params, which are stored transposed)."""
+    ch, cout = w1.shape[1], w2.shape[1]
+
+    def cast(t, dt):
+        return t.to(x.device, dt).contiguous()
+
+    return (cast(w1.t(), x.dtype), cast(b1.reshape(ch), torch.float32),
+            cast(kd.reshape(9, ch), x.dtype),
+            cast(bd.reshape(ch), torch.float32), cast(w2.t(), x.dtype),
+            cast(b2.reshape(cout), torch.float32))
 
 
 def fold_ir_params(expand: tuple, depthwise: tuple, project: tuple):

@@ -8,7 +8,9 @@ then, on the card and with no fallback anywhere:
 
   1. holds each kernel against its plain PyTorch version at check shapes
      (the largest main-path shape and odd ones), in fp32 with TF32 off
-     and in bf16, at the tolerances stated below;
+     and in bf16, at the tolerances of calipsync_tpu_torch/kernels/
+     measure.py (the timer, bounds and library calls are there too, shared
+     with calipsync_tpu_torch/kernels/bench.py);
   2. runs the full-width generator (hubert, 4 attention blocks, random
      weights with every leaf randomized, the attention gammas included)
      in bf16 at B=128 through the kernels and through the plain versions,
@@ -16,7 +18,8 @@ then, on the card and with no fallback anywhere:
      depthwise 17, attention 4), that the output is not saturated and
      that the audio reaches it; the same in fp32 at a small batch at the
      repo's tolerance;
-  3. times every kernel launch of that forward on its own inputs: the
+  3. times every kernel launch of that forward on its own inputs (CUDA
+     events, L2 flushed before each repetition): the
      kernel, its plain version and one PyTorch library call computing the
      same function (never called by the port), beside the bound the card
      could reach (bytes over 3.35 TB/s or operations over the dtype's
@@ -40,26 +43,13 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
-from types import SimpleNamespace
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-# Kernel vs plain version, (atol, atol per rms, rtol):
-# |kernel - plain| <= atol + atol_per_rms * rms(plain) + rtol * |plain|.
-# fp32: the two differ only in summation order.
-TOL_FP32 = (1e-4, 0.0, 1e-4)
-# bf16: the sums run in another order, so a cast point may round one bf16
-# ulp (2^-8 of the intermediate) apart and carry into the next stage. The
-# intermediates' scale sets that error, not the element's own size, so the
-# absolute part follows the output's rms.
-TOL_BF16 = (0.0, 0.1, 2e-2)
 # Whole generator, kernels vs plain, in units of the output's own spread
 # (std over the batch): bf16 rounding flips compound over 26 blocks.
 GEN_BF16_MEAN_ERR_PER_STD = 0.05
@@ -67,8 +57,6 @@ GEN_BF16_MAX_ERR_PER_STD = 0.5
 # fp32 generator, kernels vs plain: the repo's bar (atol, rtol).
 GEN_FP32_TOL = (1e-5, 0.0, 1e-3)
 GEN_AUDIO_REACH_PER_STD = 0.1
-EXPECTED_PER_FORWARD = {"fused_ir": 9, "depthwise3x3": 17,
-                        "cross_attention": 4}
 KERNEL_INFO = {
     "fused_ir": ("calipsync_tpu_torch/kernels/csrc/fused_ir.cu",
                  "calipsync_tpu/kernels/fused_ir.py:122"),
@@ -98,135 +86,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ---------------------------------------------------------------- timing
-
-class Timer:
-    """Median CUDA-event time of a callable, with L2 flushed before each
-    repetition (the main path meets its inputs cold)."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def ms(self, fn, warmup: int = 2, reps: int = 10) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-
-# ------------------------------------------------- per-kernel definitions
-
-def kernel_table(torch, F):
-    """name -> (wrapper, plain version, library call builder, bound)."""
-    from calipsync_tpu_torch.kernels import (cross_attention, depthwise3x3,
-                                             fused_inverted_residual)
-    from calipsync_tpu_torch.kernels.cross_attention import \
-        cross_attention_plain
-    from calipsync_tpu_torch.kernels.depthwise import depthwise3x3_plain
-    from calipsync_tpu_torch.kernels.fused_ir import \
-        fused_inverted_residual_plain
-
-    def leaky(t):
-        return F.leaky_relu(t, 0.01)
-
-    def lib_dw(x, taps, scale, bias, stride=1):
-        c, dt = x.shape[-1], x.dtype
-        w = taps.t().reshape(c, 1, 3, 3).to(dt)
-        s, b = scale.to(dt)[:, None, None], bias.to(dt)[:, None, None]
-        xn = x.permute(0, 3, 1, 2)
-        return lambda: leaky(F.conv2d(xn, w, stride=stride, padding=1,
-                                      groups=c) * s + b)
-
-    def lib_ir(x, w1, b1, kd, bd, w2, b2, residual=False):
-        dt, ch = x.dtype, w1.shape[1]
-        c1 = w1.t()[:, :, None, None].to(dt).contiguous()
-        cd = kd.t().reshape(ch, 1, 3, 3).to(dt).contiguous()
-        c2 = w2.t()[:, :, None, None].to(dt).contiguous()
-        b1_, bd_, b2_ = b1.to(dt), bd.to(dt), b2.to(dt)
-        xn = x.permute(0, 3, 1, 2)
-
-        def run():
-            h = leaky(F.conv2d(xn, c1, b1_))
-            h = leaky(F.conv2d(h, cd, bd_, padding=1, groups=ch))
-            o = leaky(F.conv2d(h, c2, b2_))
-            return o + xn if residual else o
-        return run
-
-    def lib_attn(q, k, v):
-        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
-        return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-
-    def size(t):
-        return t.numel() * t.element_size()
-
-    def bound_dw(x, taps, scale, bias, stride=1):
-        b, h, w, c = x.shape
-        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-        out_bytes = b * ho * wo * c * x.element_size()
-        nbytes = size(x) + out_bytes + size(taps) + size(scale) + size(bias)
-        ops = b * ho * wo * c * (2 * 9 + 3)
-        return nbytes, ops, str(x.dtype)
-
-    def bound_ir(x, w1, b1, kd, bd, w2, b2, residual=False):
-        b, h, w, cin = x.shape
-        ch, cout = w1.shape[1], w2.shape[1]
-        s = x.element_size()
-        nbytes = (size(x) + b * h * w * cout * s
-                  + (cin * ch + 9 * ch + ch * cout) * s + 4 * (2 * ch + cout))
-        ops = 2 * b * h * w * (cin * ch + 9 * ch + ch * cout)
-        return nbytes, ops, str(x.dtype)
-
-    def bound_attn(q, k, v):
-        b, n, d = q.shape
-        c = v.shape[-1]
-        nbytes = size(q) + size(k) + 2 * size(v)
-        ops = 2 * b * n * n * (d + c)
-        return nbytes, ops, str(q.dtype)
-
-    return {
-        "fused_ir": SimpleNamespace(kernel=fused_inverted_residual,
-                                    plain=fused_inverted_residual_plain,
-                                    library=lib_ir, bound=bound_ir),
-        "depthwise3x3": SimpleNamespace(kernel=depthwise3x3,
-                                        plain=depthwise3x3_plain,
-                                        library=lib_dw, bound=bound_dw),
-        "cross_attention": SimpleNamespace(kernel=cross_attention,
-                                           plain=cross_attention_plain,
-                                           library=lib_attn,
-                                           bound=bound_attn),
-    }
-
-
-def max_err(a, b, tol):
-    """Max abs error of a against b, and whether every element is within
-    tol (see TOL_FP32)."""
-    d = (a.float() - b.float()).abs()
-    ref = b.float()
-    limit = tol[0] + tol[1] * ref.pow(2).mean().sqrt() + tol[2] * ref.abs()
-    return d.max().item(), bool((d <= limit).all())
-
-
-def tol_text(tol) -> str:
-    return f"tol {tol[0]:g} + {tol[1]:g} rms(ref) + {tol[2]:g}|ref|"
-
-
 # ------------------------------------------------------------ the phases
 
 def check_kernels(torch, table):
     """Each kernel against its plain version at check shapes, fp32 then
     bf16. Returns name -> max abs error over the bf16 checks."""
+    from calipsync_tpu_torch.kernels.measure import (TOL_BF16, TOL_FP32,
+                                                     max_err, tol_text)
     rng = np.random.default_rng(0)
 
     def t(shape, scale=1.0):
@@ -248,18 +114,32 @@ def check_kernels(torch, table):
         return (t((b, n, d), 0.3), t((b, n, d), 0.3), t((b, n, c))), {}
 
     cases = {
+        # the largest main-path launch (weights resident), the stem's Cin
+        # of 6, Ch not a multiple of the 32-channel chunk, Cout 100,
+        # weights streamed a chunk at a time (256 -> 512 -> 64; at B=2 one
+        # tile a block, at the main path's B=128 many tiles a block that
+        # reuse the two weight slots), a tile straddling the right and
+        # bottom edges, W smaller than a tile
         "fused_ir": [ir_args((BATCH, 160, 160, 64), 128, 32, False),
                      ir_args((3, 37, 29, 12), 20, 12, True),
                      ir_args((2, 41, 23, 6), 12, 32, False),
                      ir_args((2, 13, 21, 40), 72, 100, False),
-                     ir_args((2, 19, 35, 256), 512, 64, False)],
+                     ir_args((2, 19, 35, 256), 512, 64, False),
+                     ir_args((2, 40, 40, 256), 512, 64, False),
+                     ir_args((BATCH, 40, 40, 256), 512, 64, False),
+                     ir_args((2, 50, 70, 32), 64, 32, True),
+                     ir_args((2, 11, 5, 16), 32, 16, True)],
         "depthwise3x3": [dw_args((BATCH, 160, 160, 64), 2),
                          dw_args((3, 37, 29, 12), 2),
                          dw_args((2, 19, 21, 72), 1),
                          dw_args((2, 11, 13, 5), 1)],
+        # N 77 and 300 (three 128-key blocks and three query tiles), D 24,
+        # C not a multiple of the 64-column slab, rows not 16-byte aligned
         "cross_attention": [attn_args(BATCH, 100, 64, 512),
                             attn_args(3, 77, 24, 200),
-                            attn_args(2, 300, 64, 96)],
+                            attn_args(2, 300, 64, 96),
+                            attn_args(2, 100, 64, 200),
+                            attn_args(2, 50, 20, 100)],
     }
     errors = {}
     for name, arg_list in cases.items():
@@ -290,64 +170,22 @@ def check_kernels(torch, table):
     return errors
 
 
-def random_generator(torch, dtype, ops="kernels"):
-    """The full-width generator with random weights, every leaf randomized
-    (the attention gammas included), carried in through the JAX layout."""
-    from calipsync_tpu_torch.core.weights import (from_jax_generator,
-                                                  random_jax_generator)
-    from calipsync_tpu_torch.nn.unet import Generator
-
-    model = Generator(mode="hubert", n_blocks=4, dtype=dtype, ops=ops)
-    model.load_state_dict(from_jax_generator(random_jax_generator(seed=0)),
-                          strict=True)
-    return model.cuda().eval()
-
-
-def generator_inputs(torch, batch, seed):
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.random((batch, 160, 160, 6), dtype=np.float32))
-    a = torch.from_numpy(rng.standard_normal(
-        (batch, 32, 32, 32)).astype(np.float32))
-    return x.cuda(), a.cuda()
-
-
-def run_generator(torch, table, timer):
+def run_generator(torch, timer):
     """Full-width generator, kernels vs plain, bf16 at B=128 and fp32 at
     B=4. Returns the recorded kernel calls of one bf16 forward."""
-    from calipsync_tpu_torch import kernels
-    from calipsync_tpu_torch.nn.blocks import KERNEL_OPS
+    from calipsync_tpu_torch.kernels.measure import (
+        EXPECTED_PER_FORWARD, generator_inputs, max_err, random_generator,
+        record_forward, tol_text)
 
-    model = random_generator(torch, torch.bfloat16)
-    plain = random_generator(torch, torch.bfloat16, ops="plain")
+    model = random_generator(torch.bfloat16)
+    plain = random_generator(torch.bfloat16, ops="plain")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"generator: hubert, 4 attention blocks, {n_params} params, bf16")
     check(abs(n_params - 19.79e6) < 0.01e6, f"{n_params} params")
 
-    calls = []
-
-    def recording(name, fn):
-        def run(*args, **kw):
-            out = fn(*args, **kw)
-            calls.append((name, args, kw))
-            return out
-        return run
-
-    rec = SimpleNamespace(
-        fused_ir=recording("fused_ir", KERNEL_OPS.fused_ir),
-        depthwise=recording("depthwise3x3", KERNEL_OPS.depthwise),
-        attention=recording("cross_attention", KERNEL_OPS.attention))
-    x, a = generator_inputs(torch, BATCH, seed=1)
+    x, a = generator_inputs(BATCH, seed=1)
     with torch.inference_mode():
-        for m in model.modules():
-            if hasattr(m, "ops"):
-                m.ops = rec
-        kernels.reset_launches()
-        out = model(x, a)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        for m in model.modules():
-            if hasattr(m, "ops"):
-                m.ops = KERNEL_OPS
+        out, counts, calls = record_forward(model, x, a)
         ref = plain(x, a)
         torch.cuda.synchronize()
         print(f"generator launches per forward: {counts}")
@@ -381,9 +219,9 @@ def run_generator(torch, table, timer):
         print(f"generator forward bf16 B={BATCH}: {fwd_ms:.3f} ms "
               f"(plain versions {plain_ms:.3f} ms)")
 
-        m32 = random_generator(torch, torch.float32)
-        p32 = random_generator(torch, torch.float32, ops="plain")
-        x4, a4 = generator_inputs(torch, 4, seed=2)
+        m32 = random_generator(torch.float32)
+        p32 = random_generator(torch.float32, ops="plain")
+        x4, a4 = generator_inputs(4, seed=2)
         o32, r32 = m32(x4, a4), p32(x4, a4)
         err32, ok32 = max_err(o32, r32, GEN_FP32_TOL)
         print(f"generator fp32 B=4: kernels vs plain max abs err "
@@ -391,49 +229,6 @@ def run_generator(torch, table, timer):
         check(ok32, "fp32 generator: kernels and plain versions disagree")
     del plain, m32, p32
     return calls, fwd_ms
-
-
-def time_launches(torch, table, calls, timer):
-    """Kernel, plain and library time and the bound of every recorded
-    launch; sums per kernel over one forward."""
-    per_launch = []
-    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0)
-              for n in EXPECTED_PER_FORWARD}
-    with torch.inference_mode():
-        for name, args, kw in calls:
-            k = table[name]
-            out = k.kernel(*args, **kw)
-            ref = k.plain(*args, **kw)
-            err, ok = max_err(out, ref, TOL_BF16)
-            check(ok, f"{name} on main-path input {tuple(args[0].shape)} "
-                      f"disagrees: {err}")
-            del out, ref
-            ms = timer.ms(lambda: k.kernel(*args, **kw))
-            plain_ms = timer.ms(lambda: k.plain(*args, **kw), reps=5)
-            library_ms = timer.ms(k.library(*args, **kw))
-            nbytes, ops, dt = k.bound(*args, **kw)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / PEAK_OPS[dt] * 1e3
-            row = dict(name=name, shape=list(args[0].shape),
-                       out_channels=int(args[5].shape[1])
-                       if name == "fused_ir" else None,
-                       kw={k_: v for k_, v in kw.items()},
-                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=max(bytes_ms, ops_ms), bytes=nbytes, ops=ops,
-                       bound_by="bytes" if bytes_ms >= ops_ms else
-                       "operations", max_abs_err=err)
-            per_launch.append(row)
-            print(f"time {name} {row['shape']} {row['kw']}: {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f}, library {library_ms:.4f}, "
-                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
-            t = totals[name]
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                t[key] += row[key]
-            t["bytes_ms"] += bytes_ms
-            t["ops_ms"] += ops_ms
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-    return totals, per_launch
 
 
 def serve(torch, timer):
@@ -445,7 +240,10 @@ def serve(torch, timer):
     from calipsync_tpu_torch.infer.synthesizer import (
         FrameSynthesizer, make_generate_resident_fn)
 
-    model = random_generator(torch, torch.bfloat16)
+    from calipsync_tpu_torch.kernels.measure import (EXPECTED_PER_FORWARD,
+                                                     random_generator)
+
+    model = random_generator(torch.bfloat16)
     feats = np.random.default_rng(3).standard_normal(
         (FEATURE_ROWS, 2, 1024)).astype(np.float32)
     metrics = {}
@@ -515,7 +313,7 @@ def serve(torch, timer):
               f"{metrics['compute_only_fps']:.2f} fps")
         rows = step(synth._crops_dev, phys, feats_dev, idx[0])
         plain_step = make_generate_resident_fn(
-            random_generator(torch, torch.bfloat16, ops="plain"),
+            random_generator(torch.bfloat16, ops="plain"),
             synth.crop, "bgr")
         ref = plain_step(synth._crops_dev, phys, feats_dev, idx[0])
         lsb = (rows.int() - ref.int()).abs()
@@ -568,6 +366,60 @@ def profile_request(torch, synth, feats):
             "top_kernels_ms": kernels[:20]}
 
 
+def print_kernel_resources(_build):
+    """Each compiled kernel's registers, static shared memory, spills and
+    any performance warning (from ptxas -v in build/nvcc.log), and the
+    dynamic shared memory the main path's launches ask for."""
+    import ctypes
+    import re
+
+    name = None
+    for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            name = re.sub(r"^_ZN9calipsync\d+_GLOBAL__N__\w+?_\d+", "",
+                          raw)[:60]
+            spills = "spills not reported"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Performance Loss: (.*) in the function '(\S+)'",
+                      line)
+        if m:  # e.g. wgmma serialized by ptxas
+            short = re.sub(r"^_ZN9calipsync\d+_GLOBAL__N__\w+?_\d+", "",
+                           m.group(2))[:60]
+            print(f"  {short}: {m.group(1)}")
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            print(f"  {name}: {m.group(1)} registers, static smem "
+                  f"{smem.group(1) if smem else 0} B, {spills}")
+            name = None
+    i = ctypes.c_int
+    attn = _build.function("calipsync_cross_attention_smem", [i, i, i],
+                           restype=ctypes.c_longlong)
+    print(f"  cross_attention (N 100, D 64, bf16): dynamic smem "
+          f"{attn(100, 64, 1)} B")
+    plan = _build.function("calipsync_fused_ir_plan", [i] * 5 +
+                           [ctypes.c_void_p])
+    for hw, cin, ch, cout in [(160, 6, 12, 32), (80, 64, 128, 64),
+                              (40, 128, 256, 128), (40, 256, 512, 64),
+                              (40, 64, 128, 64), (80, 128, 256, 32),
+                              (80, 32, 64, 32), (160, 64, 128, 32),
+                              (160, 32, 64, 32)]:
+        out = (ctypes.c_int * 7)()
+        plan(hw, hw, cin, ch, cout, ctypes.addressof(out))
+        print(f"  fused_ir {hw}x{hw} {cin}->{ch}->{cout}: tile {out[0]}x"
+              f"{out[1]} ({out[2]} haloed rows), weights "
+              f"{'resident' if out[3] else 'streamed'}, dynamic smem "
+              f"{out[4]} B, {out[5]} blocks/SM")
+
+
 def main() -> int:
     import torch
 
@@ -575,9 +427,7 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     try:
-        import torch.nn.functional as F
-
-        from calipsync_tpu_torch.kernels import _build
+        from calipsync_tpu_torch.kernels import _build, measure
     except ImportError as e:
         print(f"FAIL: the port is not importable beside this script: {e}",
               file=sys.stderr)
@@ -592,15 +442,14 @@ def main() -> int:
     _, build_s = _build.build(force=True)
     print(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, "
           f"{len(list(_build.CSRC.glob('*.cu')))} sources in parallel)")
-    for line in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    print_kernel_resources(_build)
 
-    timer = Timer(torch)
-    table = kernel_table(torch, F)
+    timer = measure.Timer()
+    table = measure.kernel_table()
     check_errors = check_kernels(torch, table)
-    calls, fwd_ms = run_generator(torch, table, timer)
-    totals, per_launch = time_launches(torch, table, calls, timer)
+    calls, fwd_ms = run_generator(torch, timer)
+    totals, per_launch, failures = measure.time_launches(table, calls, timer)
+    check(not failures, "; ".join(failures))
     del calls
     torch.cuda.empty_cache()
     counts, metrics = serve(torch, timer)

@@ -19,6 +19,8 @@ from calipsync_tpu.kernels import fused_ir as jax_ir
 from calipsync_tpu_torch.kernels import (cross_attention, depthwise3x3,
                                          fused_inverted_residual,
                                          launch_counts)
+from calipsync_tpu_torch.kernels.cross_attention import \
+    cross_attention_plain
 from calipsync_tpu_torch.kernels.depthwise import fold_bn
 from calipsync_tpu_torch.kernels.fused_ir import fold_ir_params
 
@@ -115,6 +117,67 @@ def test_cross_attention_matches_pallas(b, n, d, c):
     out = cross_attention(_t(q), _t(k), _t(v))
     assert tuple(out.shape) == (b, n, c)
     _close(out, ref)
+
+
+def _attention_hi_lo(q, k, v, split=True, key_block=128):
+    """The bf16 CUDA kernel's arithmetic in torch: fp32 scores from bf16
+    inputs, e = exp(s - max) in fp32, e split into a bf16 high part and a
+    bf16 remainder, the two products with v summed in fp32, the row sum
+    divided out at the end. Keys go in blocks of key_block, as in the
+    kernel: the row max and sum run over the blocks, and the sums so far
+    are rescaled when the max rises. fp32 result, before the kernel's bf16
+    cast. split=False multiplies a bf16 e alone, the arithmetic the kernel
+    avoids."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full((*qf.shape[:2], 1), float("-inf"))
+    total = torch.zeros(*qf.shape[:2], 1)
+    out = torch.zeros(*qf.shape[:2], vf.shape[-1])
+    for j0 in range(0, kf.shape[1], key_block):
+        kb, vb = kf[:, j0:j0 + key_block], vf[:, j0:j0 + key_block]
+        s = qf @ kb.transpose(1, 2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        rescale = torch.exp(m - m_new)
+        e = torch.exp(s - m_new)
+        hi = e.to(torch.bfloat16).float()
+        part = hi @ vb
+        if split:
+            part = part + (e - hi).to(torch.bfloat16).float() @ vb
+        out = out * rescale + part
+        total = total * rescale + e.sum(-1, keepdim=True)
+        m = m_new
+    return out / total
+
+
+@pytest.mark.parametrize("b,n,d,c", [(2, 100, 64, 512), (3, 37, 24, 40),
+                                     (2, 300, 64, 96)])
+def test_attention_hi_lo_split_keeps_fp32_p(b, n, d, c):
+    """The hi/lo split keeps the Pallas body's fp32-p semantics. Against
+    the Pallas kernel run in fp32 on the same bf16-rounded inputs: e_hi +
+    e_lo is e to a relative 2^-18 (the remainder is rounded to 8 bits of
+    itself, and is at most 2^-9 of e), so the output is within
+    2^-18 sum|p v| <= 2^-18 max|v| (~1.6e-5 here) plus fp32 summation
+    order: atol 2e-5. N=300 takes three key blocks, so the running max
+    and its rescaling are held to the same bar. A bf16 e alone (relative
+    2^-9) misses that bar by far. Against cross_attention_plain in bf16: within that atol plus one
+    bf16 ulp of the output, where the final cast rounds the two fp32
+    values apart."""
+    rng = np.random.default_rng(n)
+    q, k = (torch.from_numpy((rng.standard_normal((b, n, d)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    ref = np.asarray(jax_attn.cross_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v))))
+    atol = 2e-5
+    _close(_attention_hi_lo(q, k, v), ref, rtol=0.0, atol=atol)
+    bf16_p = np.abs(_attention_hi_lo(q, k, v, split=False).numpy() - ref)
+    assert bf16_p.max() > 10 * atol
+
+    out = _attention_hi_lo(q, k, v).to(torch.bfloat16).float()
+    plain = cross_attention_plain(q, k, v).float()
+    big = torch.maximum(out.abs(), plain.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7)
+    assert bool(((out - plain).abs() <= ulp + atol).all())
 
 
 def test_cpu_wrappers_launch_no_kernel():
