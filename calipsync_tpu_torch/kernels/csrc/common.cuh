@@ -236,4 +236,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// ------------------------------------------------- TMA and mbarriers
+// A tile copied global -> shared by the Tensor Memory Accelerator, its
+// arrival counted on an mbarrier in shared memory: one thread arms the
+// barrier with the bytes to expect and issues the copy; the threads that
+// read the tile wait for the barrier's phase to complete.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA);
+// a __syncthreads() follows before any thread uses them.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, and `bytes` more for the phase to wait for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A copy
+// that never lands (a bad tensor map) traps after 2^28 polls, seconds,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t polls = 0; !mbar_try_wait(bar, parity); ++polls) {
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// The box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory at dst (128-byte aligned), completing on bar. Coordinates
+// may lie outside the tensor; those elements arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 }  // namespace calipsync

@@ -110,6 +110,13 @@ def check_kernels(torch, table):
         return ((t(shape), t((9, c), 1 / 3), t(c, 0.2) + 1, t(c, 0.1)),
                 {"stride": stride})
 
+    def misaligned(x):
+        """x's values in a view whose data pointer is one element past a
+        16-byte boundary."""
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:].copy_(x.flatten())
+        return flat[1:].view(x.shape)
+
     def attn_args(b, n, d, c):
         return (t((b, n, d), 0.3), t((b, n, d), 0.3), t((b, n, c))), {}
 
@@ -129,10 +136,20 @@ def check_kernels(torch, table):
                      ir_args((BATCH, 40, 40, 256), 512, 64, False),
                      ir_args((2, 50, 70, 32), 64, 32, True),
                      ir_args((2, 11, 5, 16), 32, 16, True)],
+        # the largest main-path launch; C 12 and 5 (the simple kernel);
+        # C a multiple of 8 but not of the 64-channel slab, both strides;
+        # a stride-2 launch whose last boxes take the bottom and right pad;
+        # the main path's 10x10 whole-plane tiles; B=1; an x view that is
+        # not 16-byte aligned (the simple kernel)
         "depthwise3x3": [dw_args((BATCH, 160, 160, 64), 2),
                          dw_args((3, 37, 29, 12), 2),
                          dw_args((2, 19, 21, 72), 1),
-                         dw_args((2, 11, 13, 5), 1)],
+                         dw_args((2, 11, 13, 5), 1),
+                         dw_args((2, 19, 21, 72), 2),
+                         dw_args((2, 41, 23, 128), 2),
+                         dw_args((BATCH, 10, 10, 2048), 1),
+                         dw_args((1, 20, 20, 1024), 1),
+                         dw_args((2, 20, 20, 512), 1) + (misaligned,)],
         # N 77 and 300 (three 128-key blocks and three query tiles), D 24,
         # C not a multiple of the 64-column slab, rows not 16-byte aligned
         "cross_attention": [attn_args(BATCH, 100, 64, 512),
@@ -145,19 +162,23 @@ def check_kernels(torch, table):
     for name, arg_list in cases.items():
         k = table[name]
         worst = 0.0
-        for args, kw in arg_list:
+        for args, kw, *prep in arg_list:
             for dtype, tol in ((torch.float32, TOL_FP32),
                                (torch.bfloat16, TOL_BF16)):
                 # the wrappers cast weights themselves; activations carry
                 # the dtype
                 a = ([x.to(dtype) for x in args] if name == "cross_attention"
                      else [args[0].to(dtype), *args[1:]])
+                for f in prep:
+                    a[0] = f(a[0])
+                    check(a[0].data_ptr() % 16 != 0, "view is aligned")
                 out = k.kernel(*a, **kw)
                 torch.cuda.synchronize()
                 ref = k.plain(*a, **kw)
                 err, ok = max_err(out, ref, tol)
                 shape = tuple(args[0].shape)
-                print(f"check {name} {shape} {kw} {str(dtype)[6:]}: "
+                print(f"check {name} {shape} {kw} {str(dtype)[6:]}"
+                      f"{' misaligned' if prep else ''}: "
                       f"max_abs_err {err:.3g} "
                       f"({tol_text(tol)})")
                 check(ok, f"{name} {shape} {dtype} disagrees with its "
@@ -405,6 +426,15 @@ def print_kernel_resources(_build):
                            restype=ctypes.c_longlong)
     print(f"  cross_attention (N 100, D 64, bf16): dynamic smem "
           f"{attn(100, 64, 1)} B")
+    from calipsync_tpu_torch.kernels.depthwise import plan_tiles
+    for h, w, c, s in [(160, 160, 64, 2), (80, 80, 128, 2), (40, 40, 256, 2),
+                       (20, 20, 512, 2), (20, 20, 1024, 1), (32, 32, 64, 1),
+                       (16, 16, 512, 1), (10, 10, 2048, 1)]:
+        p = plan_tiles(BATCH, h, w, c, s)
+        print(f"  depthwise {h}x{h} C{c} s{s}: tile {p.tile_h}x{p.tile_w} "
+              f"(box {p.box_h}x{p.box_w}x{p.slab}), {p.segments} runs of "
+              f"rows, {p.stages} stages, {p.threads} threads, "
+              f"{p.blocks_per_sm} blocks/SM, dynamic smem {p.smem} B")
     plan = _build.function("calipsync_fused_ir_plan", [i] * 5 +
                            [ctypes.c_void_p])
     for hw, cin, ch, cout in [(160, 6, 12, 32), (80, 64, 128, 64),

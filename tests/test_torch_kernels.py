@@ -21,6 +21,7 @@ from calipsync_tpu_torch.kernels import (cross_attention, depthwise3x3,
                                          launch_counts)
 from calipsync_tpu_torch.kernels.cross_attention import \
     cross_attention_plain
+from calipsync_tpu_torch.kernels import depthwise as port_dw
 from calipsync_tpu_torch.kernels.depthwise import fold_bn
 from calipsync_tpu_torch.kernels.fused_ir import fold_ir_params
 
@@ -65,6 +66,113 @@ def test_depthwise_matches_pallas(shape, stride, blocked):
     out = depthwise3x3(_t(x), _t(k), _t(s), _t(b), stride=stride)
     assert tuple(out.shape) == tuple(ref.shape)
     _close(out, ref)
+
+
+@pytest.mark.parametrize("shape,stride", [
+    ((1, 20, 20, 1024), 1),   # the main path's shape classes at batch 1
+    ((1, 40, 40, 256), 2),
+    ((1, 10, 10, 2048), 1),
+    ((1, 32, 32, 64), 1),
+])
+def test_depthwise_plain_matches_xla_reference(shape, stride):
+    """The plain version (what the card's kernel is held against) against
+    the JAX package's XLA reference, at the main path's widths."""
+    rng = np.random.default_rng(sum(shape) + stride)
+    c = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (rng.standard_normal((3, 3, c)) * 0.3).astype(np.float32)
+    s = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    b = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    ref = jax_dw.depthwise3x3_reference(jnp.asarray(x), jnp.asarray(k),
+                                        jnp.asarray(s), jnp.asarray(b),
+                                        stride=stride)
+    out = port_dw.depthwise3x3_plain(_t(x), _t(k), _t(s), _t(b),
+                                     stride=stride)
+    assert tuple(out.shape) == tuple(ref.shape)
+    _close(out, ref)
+
+
+# The generator's 17 depthwise launches at B=128 (H, W, C, stride), and the
+# odd shapes chip_smoke.py checks.
+MAIN_PATH_DW = [(160, 160, 64, 2), (80, 80, 128, 2), (40, 40, 256, 2),
+                (20, 20, 512, 1), (20, 20, 512, 2), (10, 10, 1024, 1),
+                (32, 32, 64, 1), (32, 32, 128, 1), (16, 16, 512, 1),
+                (10, 10, 1024, 1), (10, 10, 1024, 1), (10, 10, 2048, 1),
+                (10, 10, 1024, 1), (10, 10, 1024, 1), (10, 10, 512, 1),
+                (20, 20, 1024, 1), (20, 20, 256, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,c,stride", sorted(
+    {(128, *s) for s in MAIN_PATH_DW}
+    | {(2, 41, 23, 128, 2), (2, 19, 21, 72, 1), (2, 19, 21, 72, 2),
+       (1, 20, 20, 1024, 1), (2, 160, 160, 64, 2), (2, 11, 13, 8, 1)}))
+def test_depthwise_tile_plan(b, h, w, c, stride):
+    """The TMA kernel's tiling, walked as the kernel walks it: the tiles
+    cover the output exactly once, each haloed box lies within the image
+    and its pad of 1, the blocks' runs of tiles cover every tile once, the
+    threads cover each tile's columns and rows, and the plan fits the
+    H100's limits."""
+    p = port_dw.plan_tiles(b, h, w, c, stride)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    slabs = -(-c // p.slab)
+    tiles_h, tiles_w = ho // p.tile_h, wo // p.tile_w
+    assert p.tiles == slabs * b * tiles_h * tiles_w
+    # the box: TMA's limits (<= 256 a dimension, inner extent a multiple
+    # of 16 bytes)
+    assert p.box_h == (p.tile_h - 1) * stride + 3 <= 256
+    assert p.box_w == (p.tile_w - 1) * stride + 3 <= 256
+    assert p.slab <= 64 and (p.slab * 2) % 16 == 0 and p.slab % 8 == 0
+    # shared memory at the chosen blocks an SM
+    assert p.smem == p.stages * port_dw.stage_bytes(p.box_h, p.box_w,
+                                                    p.slab)
+    assert p.smem <= port_dw.SMEM_PER_BLOCK
+    assert (p.smem + port_dw.SMEM_RESERVED) * p.blocks_per_sm \
+        <= port_dw.SMEM_PER_SM
+    assert p.blocks_per_sm * p.threads <= port_dw.THREADS_PER_SM
+    assert (p.blocks_per_sm * p.threads * port_dw.REGS_PER_THREAD
+            <= port_dw.REGS_PER_SM)
+    assert p.grid <= min(p.tiles, 132 * p.blocks_per_sm)
+    assert 2 <= p.stages <= port_dw.MAX_STAGES
+    # threads: one an (8-channel group, column, run of rows)
+    units = p.slab // 8 * p.tile_w * p.segments
+    assert units <= p.threads <= 256 and p.threads % 32 == 0
+    run = -(-p.tile_h // p.segments)
+    runs = [min(run, p.tile_h - r0) for r0 in range(0, p.tile_h, run)]
+    assert len(runs) == p.segments and sum(runs) == p.tile_h
+
+    cover = np.zeros((b, ho, wo, slabs), np.int32)
+    per, extra = divmod(p.tiles, p.grid)
+    walked = []
+    for blk in range(p.grid):
+        first = blk * per + min(blk, extra)
+        walked += range(first, first + per + (blk < extra))
+    assert walked == list(range(p.tiles))
+    for t in walked:   # ((slab * images + b) * tiles_h + ty) * tiles_w + tx
+        tx, r = t % tiles_w, t // tiles_w
+        ty, r = r % tiles_h, r // tiles_h
+        img, slab = r % b, r // b
+        y0, x0 = ty * p.tile_h, tx * p.tile_w
+        cover[img, y0:y0 + p.tile_h, x0:x0 + p.tile_w, slab] += 1
+        top, left = y0 * stride - 1, x0 * stride - 1
+        assert -1 <= top and top + p.box_h - 1 <= h
+        assert -1 <= left and left + p.box_w - 1 <= w
+    assert (cover == 1).all()
+
+
+def test_depthwise_kernel_choice():
+    """bf16 with C a multiple of 8 and 16-byte-aligned tensors takes the
+    TMA kernel; fp32, C not a multiple of 8 or an unaligned view takes
+    the simple one."""
+    w = [torch.zeros(9, 16), torch.ones(16), torch.zeros(16)]
+    x = torch.zeros((1, 4, 4, 16), dtype=torch.bfloat16)
+    assert port_dw.takes_tma_kernel(x, *w)
+    assert not port_dw.takes_tma_kernel(x.float(), *w)
+    assert not port_dw.takes_tma_kernel(
+        torch.zeros((1, 4, 4, 12), dtype=torch.bfloat16),
+        torch.zeros(9, 12), torch.ones(12), torch.zeros(12))
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    assert not port_dw.takes_tma_kernel(flat[1:].view(x.shape), *w)
+    assert not port_dw.takes_tma_kernel(x, torch.zeros(9 * 16 + 1)[1:], *w[1:])
 
 
 def _ir_weights(rng, cin, ch, cout):
