@@ -1,4 +1,6 @@
-"""Generator weights carried across from the JAX package.
+"""Generator and HuBERT weights carried across from the JAX package
+(HuBERT: :func:`from_jax_hubert` and :func:`random_jax_hubert`, at the end
+of this file).
 
 :func:`from_jax_generator` takes the JAX ``{'params', 'batch_stats'}`` tree
 (nested dicts of numpy arrays) and returns the port's state_dict, which has
@@ -231,3 +233,154 @@ def random_jax_generator(n_blocks: int = 4, seed: int = 0) -> Dict:
         outc=({"conv": conv_bias(ch[0], 3, scale=0.25)}, None),
         outc_bn=bn(3))
     return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------- HuBERT
+
+def from_jax_hubert(variables: Mapping, config) -> Dict[str, torch.Tensor]:
+    """flax HuBERT variables ({'params': ...}, numpy leaves, the layout of
+    calipsync_tpu/nn/hubert.py) -> the port's state_dict (HF
+    ``HubertModel`` keys), strict-loadable into
+    :class:`calipsync_tpu_torch.nn.hubert.HubertModel` built from the same
+    ``config`` (a :class:`~calipsync_tpu_torch.nn.hubert.HubertConfig`).
+
+    The inverse of the JAX ``import_hubert``: conv kernels (K, I, O) ->
+    (O, I, K), dense kernels transposed, the per-head q/k/v (hidden, H, D)
+    and out (H, D, hidden) kernels flattened. The positional conv's folded
+    kernel becomes the weight-norm pair v = w, g = |w| (computed as the
+    forward computes it, so g / |v| is 1). A conv bias the flax tree lacks
+    (the 'group' extractor's layers after the first) comes across as
+    zeros; ``masked_spec_embed`` (unused at inference) as zeros.
+    """
+    from calipsync_tpu_torch.nn.hubert import _tap_norm
+
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    hidden = config.hidden_size
+    out["masked_spec_embed"] = torch.zeros(hidden)
+
+    fe = p["feature_extractor"]
+    for i in range(len(config.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        conv = fe[f"conv{i}"]
+        w = _t(np.asarray(conv["kernel"], np.float32).transpose(2, 1, 0))
+        out[f"{base}.conv.weight"] = w
+        if config.conv_bias:
+            out[f"{base}.conv.bias"] = (_t(conv["bias"]) if "bias" in conv
+                                        else torch.zeros(w.shape[0]))
+        norm = (fe.get(f"ln{i}") if config.feat_extract_norm == "layer"
+                else fe.get("gn0") if i == 0 else None)
+        if norm is not None:
+            _layer_norm(out, f"{base}.layer_norm", norm)
+
+    fp = p["feature_projection"]
+    _layer_norm(out, "feature_projection.layer_norm", fp["layer_norm"])
+    _dense(out, "feature_projection.projection", fp["projection"])
+
+    enc = p["encoder"]
+    pc = enc["pos_conv_embed"]["conv"]
+    v = _t(np.asarray(pc["kernel"], np.float32).transpose(2, 1, 0))
+    out["encoder.pos_conv_embed.conv.bias"] = _t(pc["bias"])
+    out["encoder.pos_conv_embed.conv.weight_g"] = _tap_norm(v)
+    out["encoder.pos_conv_embed.conv.weight_v"] = v
+    _layer_norm(out, "encoder.layer_norm", enc["layer_norm"])
+    for i in range(config.num_hidden_layers):
+        lp = enc[f"layers_{i}"]
+        base = f"encoder.layers.{i}"
+        att = lp["attention"]
+        for name in ("q_proj", "k_proj", "v_proj"):
+            k = np.asarray(att[name]["kernel"], np.float32)
+            out[f"{base}.attention.{name}.weight"] = _t(
+                k.reshape(hidden, -1).T)
+            out[f"{base}.attention.{name}.bias"] = _t(
+                np.asarray(att[name]["bias"]).reshape(-1))
+        k = np.asarray(att["out_proj"]["kernel"], np.float32)
+        out[f"{base}.attention.out_proj.weight"] = _t(
+            k.reshape(-1, hidden).T)
+        out[f"{base}.attention.out_proj.bias"] = _t(att["out_proj"]["bias"])
+        _layer_norm(out, f"{base}.layer_norm", lp["layer_norm"])
+        for name in ("intermediate_dense", "output_dense"):
+            _dense(out, f"{base}.feed_forward.{name}",
+                   lp["feed_forward"][name])
+        _layer_norm(out, f"{base}.final_layer_norm", lp["final_layer_norm"])
+    return out
+
+
+def _layer_norm(out: Dict, p: str, params: Mapping) -> None:
+    out[f"{p}.weight"] = _t(params["scale"])
+    out[f"{p}.bias"] = _t(params["bias"])
+
+
+def random_jax_hubert(config, seed: int = 0) -> Dict:
+    """Random HuBERT variables in the flax layout ({'params': ...}, numpy
+    leaves): what :func:`from_jax_hubert` takes, made with numpy from
+    ``seed`` (no JAX needed).
+
+    Kernels N(0, 1/fan_in), the init flax's lecun_normal gives; biases
+    N(0, 0.02); norm scales U(0.9, 1.1) and biases N(0, 0.02). The
+    pre-LN residual stream then neither saturates nor collapses over 24
+    layers: each sublayer adds an O(1) update to an O(1) stream.
+    """
+    rng = np.random.default_rng(seed)
+    c = config
+    h = c.num_attention_heads
+    d = c.hidden_size // h
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def kernel(*shape, fan_in):
+        return normal(shape, fan_in ** -0.5)
+
+    def bias(n):
+        return normal((n,), 0.02)
+
+    def norm(n):
+        return {"scale": rng.uniform(0.9, 1.1, n).astype(np.float32),
+                "bias": bias(n)}
+
+    def dense(i, o):
+        return {"kernel": kernel(i, o, fan_in=i), "bias": bias(o)}
+
+    fe = {}
+    cin = 1
+    for i, (dim, k) in enumerate(zip(c.conv_dim, c.conv_kernel)):
+        conv = {"kernel": kernel(k, cin, dim, fan_in=k * cin)}
+        if c.conv_bias and (c.feat_extract_norm == "layer" or i == 0):
+            conv["bias"] = bias(dim)
+        fe[f"conv{i}"] = conv
+        if c.feat_extract_norm == "layer":
+            fe[f"ln{i}"] = norm(dim)
+        elif i == 0:
+            fe["gn0"] = norm(dim)
+        cin = dim
+
+    k, g = c.num_conv_pos_embeddings, c.num_conv_pos_embedding_groups
+    enc = {"pos_conv_embed": {"conv": {
+               "kernel": kernel(k, c.hidden_size // g, c.hidden_size,
+                                fan_in=k * c.hidden_size // g),
+               "bias": bias(c.hidden_size)}},
+           "layer_norm": norm(c.hidden_size)}
+    for i in range(c.num_hidden_layers):
+        def qkv():
+            return {"kernel": kernel(c.hidden_size, h, d,
+                                     fan_in=c.hidden_size),
+                    "bias": normal((h, d), 0.02)}
+
+        enc[f"layers_{i}"] = {
+            "attention": {"q_proj": qkv(), "k_proj": qkv(), "v_proj": qkv(),
+                          "out_proj": {"kernel": kernel(h, d, c.hidden_size,
+                                                        fan_in=c.hidden_size),
+                                       "bias": bias(c.hidden_size)}},
+            "layer_norm": norm(c.hidden_size),
+            "final_layer_norm": norm(c.hidden_size),
+            "feed_forward": {
+                "intermediate_dense": dense(c.hidden_size,
+                                            c.intermediate_size),
+                "output_dense": dense(c.intermediate_size, c.hidden_size)}}
+    return {"params": {
+        "feature_extractor": fe,
+        "feature_projection": {"layer_norm": norm(c.conv_dim[-1]),
+                               "projection": dense(c.conv_dim[-1],
+                                                   c.hidden_size)},
+        "encoder": enc}}

@@ -18,9 +18,10 @@ implementation's image_infer_v1/tools/frame_synthesizer/infer_api.py).
     blend -> alpha composite) is uint8 host work through
     native/compositor.cpp, pixel-matching the reference.
 
-Transfer formats: 'bgr' (reference-exact uint8 crops) and 'yuv420'
-(planar I420 packed on the device, half the bytes). The JAX package's
-'adaptive' format is not part of this port yet and is refused.
+Transfer formats: 'bgr' (reference-exact uint8 crops), 'yuv420' (planar
+I420 packed on the device, half the bytes) and 'adaptive', which runs one
+of the two a call and keeps the faster by measured fps (the JAX package's
+bandit, unchanged: ``_choose_call_format``).
 """
 
 from __future__ import annotations
@@ -47,10 +48,10 @@ from calipsync_tpu_torch.vision.geometry import CropParams, mouth_bbox_infer
 TRANSFER_FORMATS = ("bgr", "yuv420")
 
 
-def _check_format(transfer_format: str) -> None:
-    if transfer_format not in TRANSFER_FORMATS:
+def _check_format(transfer_format: str, allowed=TRANSFER_FORMATS) -> None:
+    if transfer_format not in allowed:
         raise ValueError(f"unknown transfer_format: {transfer_format!r} "
-                         f"(supported: {TRANSFER_FORMATS})")
+                         f"(supported: {allowed})")
 
 
 def yuv420_pack(pred255: torch.Tensor) -> torch.Tensor:
@@ -233,7 +234,8 @@ class FrameSynthesizer:
             speaker's mouth-crop array on the device (~75 KB/frame); each
             step then uploads only two index vectors.
           pipeline_depth: device batches in flight.
-          transfer_format: 'bgr' or 'yuv420' (see module docstring).
+          transfer_format: 'bgr', 'yuv420' or 'adaptive' (see module
+            docstring).
           preload_max_bytes: crop stores above this use the upload path.
           first_batch_size: when >0, the first device batch of each
             iterate call runs at this smaller padded shape so the first
@@ -241,7 +243,7 @@ class FrameSynthesizer:
             Output-identical.
           device: 'cuda' (default; raises without a GPU) or 'cpu'.
         """
-        _check_format(transfer_format)
+        _check_format(transfer_format, TRANSFER_FORMATS + ("adaptive",))
         self.device = resolve_device(device)
         self.data_dir = data_dir
         self.batch_size = batch_size
@@ -257,10 +259,20 @@ class FrameSynthesizer:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.eval()  # the step factories move it
         self.transfer_format = transfer_format
-        self._generate_fn = make_generate_fn(self.model, transfer_format,
-                                             self.device)
-        self._generate_resident_fn = make_generate_resident_fn(
-            self.model, crop, transfer_format, self.device)
+        # the formats this synthesizer dispatches; adaptive keeps both
+        # steps and starts on yuv420 (its worst case is a sub-ms host
+        # decode, bgr's twice the bytes); measurements take over within
+        # two calls
+        fmts = (TRANSFER_FORMATS if transfer_format == "adaptive"
+                else (transfer_format,))
+        self._active_format = fmts[-1]
+        self._fmt_fps: Dict[tuple, float] = {}
+        self._last_explore = 0.0
+        self._generate_fns = {f: make_generate_fn(self.model, f, self.device)
+                              for f in fmts}
+        self._generate_resident_fns = {
+            f: make_generate_resident_fn(self.model, crop, f, self.device)
+            for f in fmts}
         self.executor = ThreadPoolExecutor(max_workers=max(4, batch_size))
         self.sequencer = PingPongSequencer(
             self.total_frames, np.random.default_rng(seed))
@@ -367,13 +379,61 @@ class FrameSynthesizer:
             range(self.total_frames))))
         self._crops_dev = torch.from_numpy(crops).to(self.device)
 
+    # ---------------- adaptive transfer format ----------------
+    #
+    # The signal is each format's MEASURED throughput, not a cost model of
+    # the link: each iterate call runs ONE format, its achieved fps feeds
+    # an EMA keyed by (format, call-size class), and the next call takes
+    # the argmax, re-measuring the loser every ``_EXPLORE_INTERVAL_S``.
+    # Size classes keep 25-row streaming windows (fixed costs dominate)
+    # apart from 1000-row offline calls.
+
+    _EXPLORE_INTERVAL_S = 30.0
+
+    def _size_class(self, n_rows: int) -> str:
+        return "small" if n_rows <= 64 else "large"
+
+    def _note_call_fps(self, fmt: str, n_rows: int, wall: float) -> None:
+        if self.transfer_format != "adaptive" or not n_rows or wall <= 0:
+            return
+        key = (fmt, self._size_class(n_rows))
+        fps = n_rows / wall
+        old = self._fmt_fps.get(key)
+        self._fmt_fps[key] = fps if old is None else 0.5 * old + 0.5 * fps
+
+    def _choose_call_format(self, n_rows: int) -> str:
+        """The transfer format of one whole iterate call: a table lookup
+        that never blocks, so it is safe ahead of the head batch."""
+        if self.transfer_format != "adaptive":
+            return self._active_format
+        cls = self._size_class(n_rows)
+        bgr = self._fmt_fps.get(("bgr", cls))
+        yuv = self._fmt_fps.get(("yuv420", cls))
+        if bgr is None and yuv is None:
+            choice = self._active_format  # bootstrap on the default
+        elif bgr is None:
+            choice = "bgr"                # measure the unmeasured arm
+            self._last_explore = time.time()  # bootstrap IS an explore
+        elif yuv is None:
+            choice = "yuv420"
+            self._last_explore = time.time()
+        elif (time.time() - self._last_explore
+                > self._EXPLORE_INTERVAL_S):
+            self._last_explore = time.time()
+            choice = "bgr" if bgr <= yuv else "yuv420"  # refresh loser
+        else:
+            choice = "bgr" if bgr > yuv else "yuv420"
+        self._active_format = choice
+        return choice
+
     # ---------------- synthesis ----------------
 
-    def _dispatch(self, entries, seq, feature_indices, feats_dev,
+    def _dispatch(self, entries, seq, feature_indices, feats_dev, fmt: str,
                   pad_to: Optional[int] = None) -> _Pending:
-        """Stage inputs, launch the device step and the copy of its rows to
-        the host (both asynchronous on CUDA). ``pad_to`` overrides the
-        padded batch (the small first-window batch)."""
+        """Stage inputs, launch the device step packing rows in ``fmt`` and
+        the copy of its rows to the host (both asynchronous on CUDA).
+        ``pad_to`` overrides the padded batch (the small first-window
+        batch)."""
         n = len(entries)
         pad_to = pad_to or self.batch_size
         feat_idx = np.zeros((pad_to,), np.int64)
@@ -382,7 +442,7 @@ class FrameSynthesizer:
         if self._crops_dev is not None:
             phys_idx = np.zeros((pad_to,), np.int64)
             phys_idx[:n] = [s % self.total_frames for s in seq]
-            preds = self._generate_resident_fn(
+            preds = self._generate_resident_fns[fmt](
                 self._crops_dev, torch.from_numpy(phys_idx).to(self.device),
                 feats_dev, feat_idx)
         else:
@@ -392,7 +452,7 @@ class FrameSynthesizer:
             for i, e in enumerate(entries):
                 ref_u8[i] = e["ref"]
                 masked_u8[i] = e["masked"]
-            preds = self._generate_fn(
+            preds = self._generate_fns[fmt](
                 torch.from_numpy(ref_u8).to(self.device),
                 torch.from_numpy(masked_u8).to(self.device), feats_dev,
                 feat_idx)
@@ -413,11 +473,11 @@ class FrameSynthesizer:
         return composite_frame(entry["img"], crop_img,
                                entry["fm"][..., 0], p.ymin, p.xmin)
 
-    def _composite_batch(self, pending: _Pending,
-                         entries) -> list[np.ndarray]:
+    def _composite_batch(self, pending: _Pending, entries,
+                         fmt: str) -> list[np.ndarray]:
         cfg = self.crop
         preds = pending.numpy()[:len(entries)]  # waits for the copy
-        if self.transfer_format == "yuv420":
+        if fmt == "yuv420":
             preds = [yuv420_unpack(p, cfg.size) for p in preds]
         else:
             preds = preds.reshape(-1, cfg.size, cfg.size, 3)
@@ -478,6 +538,9 @@ class FrameSynthesizer:
                 p += n
 
         seq_iter = canonical_seq_stream()
+        # one transfer format a call; the call's achieved fps is fed back
+        # in the finally block
+        call_fmt = self._choose_call_format(n_rows)
         try:
             for ri, (start, end) in enumerate(ranges):
                 head = (ri == 0 and self.first_batch_size
@@ -494,9 +557,9 @@ class FrameSynthesizer:
 
                 pending = self._dispatch(
                     entries, seq, list(range(start, end)), feats_dev,
-                    pad_to=self.first_batch_size if head else None)
+                    call_fmt, pad_to=self.first_batch_size if head else None)
                 inflight.append((self.executor.submit(
-                    self._composite_batch, pending, entries), seq))
+                    self._composite_batch, pending, entries, call_fmt), seq))
                 # pop as soon as the head batch is composited, so frames
                 # reach the consumer before the pipeline is full
                 while len(inflight) >= self.pipeline_depth or (
@@ -510,6 +573,11 @@ class FrameSynthesizer:
             stats["process_batch"] = time.time() - t_start - \
                 stats["load_frame"]
             t = time.time() - t_start
+            if is_generate_sync_frame:
+                # frames actually delivered: an early-closed generator
+                # must not report the full row count over a short wall
+                emitted = self.last_logical_index - start_frame_idx + 1
+                self._note_call_fps(call_fmt, min(emitted, n_rows), t)
             if t > 0 and n_rows:
                 print(f"synthesis: {n_rows / t:.2f} fps "
                       f"(load {stats['load_frame']:.2f}s, "

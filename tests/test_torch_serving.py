@@ -105,7 +105,7 @@ def test_frame_synthesizer_matches_jax(synthetic_step3_dir, jax_generator,
 def test_unknown_transfer_format_raises(synthetic_step3_dir):
     with pytest.raises(ValueError, match="transfer_format"):
         torch_synth.FrameSynthesizer(None, str(synthetic_step3_dir),
-                                     transfer_format="adaptive",
+                                     transfer_format="rgb",
                                      device="cpu")
     with pytest.raises(ValueError, match="transfer_format"):
         torch_synth._pack_pred(torch.zeros(1, 2, 2, 3), "rgb")
