@@ -1,8 +1,10 @@
-"""Command-line interface of the port (counterpart of the featurize, infer
-and serve commands of calipsync_tpu/cli.py):
+"""Command-line interface of the port (counterpart of the featurize, train,
+infer and serve commands of calipsync_tpu/cli.py):
 
     python -m calipsync_tpu_torch.cli featurize --hubert hubert_dir/ \\
         --audio a.wav --out feats.npy
+    python -m calipsync_tpu_torch.cli train --data step1_dir/ \\
+        --save run/ [--vgg vgg19-dcbb9e9d.pth] [--base generator.pth]
     python -m calipsync_tpu_torch.cli infer --assets assets/infer_data \\
         --ckpt generator.pth --hubert hubert_dir/ --audio a.wav --out o.mp4
     python -m calipsync_tpu_torch.cli serve --assets assets/infer_data \\
@@ -11,8 +13,8 @@ and serve commands of calipsync_tpu/cli.py):
 ``--hubert`` is a local HF checkpoint directory (``config.json`` and
 ``model.safetensors`` or ``pytorch_model.bin``); ``--ckpt`` a generator
 state_dict in the reference torch layout (what the JAX package's
-``export-torch`` writes). Every command runs on the card unless given
-``--device cpu``.
+``export-torch`` and the port's ``train`` write). Every command runs on
+the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -85,6 +87,24 @@ def cmd_featurize(args):
     print(json.dumps({"out": args.out, "rows": int(feats.shape[0]),
                       "shape": list(feats.shape),
                       "device": str(ex.device)}))
+
+
+def cmd_train(args):
+    """Fine-tune the generator on a step-1 directory; prints the path of
+    the ``generator.pth`` it writes."""
+    from calipsync_tpu_torch.config import load_config
+    from calipsync_tpu_torch.pipelines.step2_train import (
+        GENERATOR_FILE, train_digital_model)
+
+    train = {k: v for k, v in (("grad_accum", args.grad_accum),
+                               ("remat", args.remat), ("zero1", args.zero1),
+                               ("epochs", args.epochs)) if v is not None}
+    cfg = load_config(args.config, overrides={
+        "train": train, "model": {"dtype": args.dtype}})
+    train_digital_model(args.data, args.save, vgg_path=args.vgg,
+                        unet_checkpoint=args.base, cfg=cfg,
+                        resume=args.resume, device=args.device)
+    print(os.path.join(args.save, GENERATOR_FILE))
 
 
 def cmd_infer(args):
@@ -176,6 +196,36 @@ def main(argv=None):
     sp.add_argument("--out", required=True, help=".npy output path")
     common(sp)
     sp.set_defaults(fn=cmd_featurize)
+
+    sp = sub.add_parser("train", help="fine-tune the generator")
+    sp.add_argument("--data", required=True, help="step-1 directory")
+    sp.add_argument("--save", required=True, help="checkpoint directory")
+    sp.add_argument("--vgg", default=None,
+                    help="vgg19 .pth for the perceptual term (none: L1 "
+                         "only)")
+    sp.add_argument("--base", default=None,
+                    help="generator .pth to start from")
+    sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--grad-accum", type=int, default=None,
+                    help="microbatches per Adam update")
+    # --remat / --no-remat: a switch a --config file turned on can be
+    # turned off here (None: the config's value)
+    sp.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="recompute the generator's activations in the "
+                         "backward pass")
+    sp.add_argument("--zero1", action=argparse.BooleanOptionalAction,
+                    default=None, help="not ported: raises")
+    sp.add_argument("--dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"],
+                    help="compute dtype, over the config's; parameters "
+                         "stay fp32. bfloat16 is the clone recipe of the "
+                         "JAX package's `clone`; float32 on request")
+    sp.add_argument("--epochs", type=int, default=None)
+    sp.add_argument("--config", default=None, help="JSON config file")
+    sp.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("infer", help="audio -> lip-synced video")
     sp.add_argument("--assets", required=True, help="infer_data dir")

@@ -1,11 +1,13 @@
 """Configuration the port's entry points read (own copy of the serving
-part of calipsync_tpu/config.py), loaded from the same JSON files.
+and training parts of calipsync_tpu/config.py), loaded from the same JSON
+files.
 
 A setting the port cannot honour yet raises when the config is loaded:
-``mesh.model > 1`` (sharded HuBERT), ``mesh.dcn != 1`` (a host axis).
-Sections and keys the port's entry points do not read (``train``,
-``audio``, ``mesh.data``, ``model.attn_impl``, ...) are accepted and
-ignored, as the JAX package's infer and serve commands ignore them.
+``mesh.model > 1`` (sharded HuBERT), ``mesh.dcn != 1`` (a host axis),
+``mesh.data > 1`` and ``train.zero1`` (data-parallel training). Sections
+and keys the port's entry points do not read (``audio``,
+``model.attn_impl``, ...) are accepted and ignored, as the JAX package's
+commands ignore the ones they do not read.
 """
 
 from __future__ import annotations
@@ -40,11 +42,49 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class MeshConfig:
-    """The port serves on one card: ``model`` (sharded HuBERT) and
-    ``dcn`` (a host axis) must stay 1. The JAX package's other mesh keys
-    are ignored, as every key the port does not read."""
+class TrainConfig:
+    """The JAX package's TrainConfig (calipsync_tpu/config.py:52-97), its
+    fields and defaults, but for two that would change nothing here, and
+    that a config file may still set (the port reads no key it does not
+    know): ``sync_batchnorm``, as the port trains on one card, where the
+    batch statistics are the replica's; and ``steps_per_dispatch``, JAX's
+    K steps folded into one device dispatch, as the port's step is eager
+    PyTorch, with no dispatch to fold and no host sync a step to save (the
+    losses stay on the card)."""
 
+    batch_size: int = 16
+    lr: float = 1e-3
+    epochs: int = 20
+    perceptual_weight: float = 0.1
+    num_workers: int = 4               # host JPEG-decode threads
+    seed: int = 0
+    checkpoint_every: int = 0          # epochs; 0 = the final epoch only
+    # Every frame decoded once and its 160x160 crop kept on the card; a
+    # step gathers crops by index. Off, or above resident_max_bytes, the
+    # host decodes each batch (LipSyncDataset + Prefetcher).
+    resident_data: bool = True
+    resident_max_bytes: int = 4 << 30
+    # SIGTERM/SIGINT checkpoint the run at the next batch boundary and
+    # return; resume=True redoes that epoch.
+    preemption_safe: bool = True
+    # Microbatches per Adam update: BN statistics per microbatch, the
+    # gradients averaged.
+    grad_accum: int = 1
+    # Recompute the generator's activations in the backward pass.
+    remat: bool = False
+    # ZeRO-1 optimizer-state sharding across data-parallel ranks: not
+    # ported (ROADMAP.md A.8); raises when loaded.
+    zero1: bool = False
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The port runs on one card: ``model`` (sharded HuBERT), ``dcn`` (a
+    host axis) and ``data`` (data-parallel devices; -1 means all of them,
+    which is the one card) must not ask for more. The JAX package's other
+    mesh keys are ignored, as every key the port does not read."""
+
+    data: int = -1
     dcn: int = 1
     model: int = 1
 
@@ -74,6 +114,7 @@ class PipelineConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def _from_dict(cls, data: dict) -> Any:
@@ -104,6 +145,16 @@ def _check_supported(cfg: PipelineConfig) -> PipelineConfig:
         raise NotImplementedError(
             f"mesh.dcn={cfg.mesh.dcn}: multi-host meshes are not ported "
             "yet (ROADMAP.md A.8, multi-GPU)")
+    if cfg.mesh.data > 1:
+        raise NotImplementedError(
+            f"mesh.data={cfg.mesh.data}: data-parallel training is not "
+            "ported yet (ROADMAP.md A.8, DDP with SyncBatchNorm); the "
+            "port trains on one card")
+    if cfg.train.zero1:
+        raise NotImplementedError(
+            "train.zero1: ZeRO-1 optimizer sharding is not ported yet "
+            "(ROADMAP.md A.8, ZeroRedundancyOptimizer); the port trains "
+            "on one card with the whole Adam state")
     if cfg.model.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown model.dtype: {cfg.model.dtype!r}")
     return cfg

@@ -1,6 +1,6 @@
-"""Generator and HuBERT weights carried across from the JAX package
-(HuBERT: :func:`from_jax_hubert` and :func:`random_jax_hubert`, at the end
-of this file).
+"""Generator, HuBERT and VGG19 weights carried across from the JAX package
+(HuBERT: :func:`from_jax_hubert` and :func:`random_jax_hubert`; VGG19:
+:func:`from_jax_vgg` and :func:`random_jax_vgg`, at the end of this file).
 
 :func:`from_jax_generator` takes the JAX ``{'params', 'batch_stats'}`` tree
 (nested dicts of numpy arrays) and returns the port's state_dict, which has
@@ -384,3 +384,39 @@ def random_jax_hubert(config, seed: int = 0) -> Dict:
                                "projection": dense(c.conv_dim[-1],
                                                    c.hidden_size)},
         "encoder": enc}}
+
+
+# ------------------------------------------------------------------ VGG19
+
+def from_jax_vgg(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``VGG19Features`` variables ({'params': {'conv{N}': {'kernel',
+    'bias'}}}, the layout of calipsync_tpu/nn/vgg.py) -> the port's
+    state_dict (torchvision's ``features.N.*`` keys), strict-loadable into
+    :class:`calipsync_tpu_torch.nn.vgg.VGG19Features`."""
+    from calipsync_tpu_torch.nn.vgg import LAYERS
+
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for idx, *_ in LAYERS:
+        out[f"features.{idx}.weight"] = _conv_kernel(p[f"conv{idx}"]["kernel"])
+        out[f"features.{idx}.bias"] = _t(p[f"conv{idx}"]["bias"])
+    return out
+
+
+def random_jax_vgg(seed: int = 0) -> Dict:
+    """A random VGG19 trunk in the flax layout (numpy leaves), made from
+    ``seed``: kernels N(0, 2/fan_in) (He, so the signal keeps its scale
+    through the ReLUs), biases N(0, 0.01). No VGG weights are in the
+    repository; a seeded random trunk does the same work."""
+    from calipsync_tpu_torch.nn.vgg import LAYERS
+
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for idx, width, *_ in LAYERS:
+        fan_in = 9 * cin
+        params[f"conv{idx}"] = {
+            "kernel": (rng.standard_normal((3, 3, cin, width))
+                       * np.sqrt(2.0 / fan_in)).astype(np.float32),
+            "bias": (rng.standard_normal(width) * 0.01).astype(np.float32)}
+        cin = width
+    return {"params": params}

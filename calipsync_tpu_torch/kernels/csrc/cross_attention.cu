@@ -4,7 +4,8 @@
 //
 // Replaces: calipsync_tpu/kernels/cross_attention.py, _attention_fwd_pallas
 // (:55, body _attention_kernel :36), reached via cross_attention (:97).
-// Forward only: serving never takes the gradient.
+// Forward only: the backward is plain PyTorch products
+// (kernels/cross_attention.py), as the JAX backward is plain XLA.
 //
 // Bound on the H100: memory. On the serving path q,k are (B,100,64) and v
 // (B,100,512); at B=128 bf16 the call must read q, k and v once and write

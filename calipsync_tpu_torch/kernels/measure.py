@@ -31,6 +31,35 @@ TOL_FP32 = (1e-4, 0.0, 1e-4)
 # intermediates' scale sets that error, not the element's own size, so the
 # absolute part follows the output's rms.
 TOL_BF16 = (0.0, 0.1, 2e-2)
+# Gradients through the kernel (its forward, the plain backward) against
+# autograd through the plain version, dq, dk and dv: the two backward
+# passes run the same fp32 products in another order, and in bf16 each
+# gradient is then rounded once to bf16 (one ulp, 2^-8 of the value).
+TOL_GRAD_FP32 = (1e-4, 0.0, 1e-4)
+TOL_GRAD_BF16 = (0.0, 0.02, 1e-2)
+# A whole train step, kernels against plain versions. The generator's
+# gradient is ill-conditioned in train mode: a perturbation at a block's
+# input about doubles through the block, so rounding alone moves the
+# early leaves by percents (fp32 against fp64 on the CPU: a median 6% a
+# leaf). The yardstick is the plain versions in fp64: each leaf of the
+# kernels' gradient must be as close to it as the plain versions' in the
+# same dtype, within GRAD_LEAF_RATIO on every leaf and GRAD_RMS_RATIO in
+# rms over the leaves (on the CPU, JAX against the port: a tail of 3.4 a
+# leaf over 300 leaves, 1.1 at the median), plus GRAD_LEAF_SLACK of the
+# leaf's norm: near the output, where the rounding error of a leaf is
+# under 1%, it moves by more than 5x with the thread count alone.
+GRAD_LEAF_RATIO = 5.0
+GRAD_LEAF_SLACK = 0.01
+GRAD_RMS_RATIO = 1.5
+# The attention projections' weight gradients of a train step against the
+# plain version, relative error over the leaf's norm: each CrossAttention
+# re-run through cross_attention_plain on the inputs, parameters and output
+# gradient recorded in the step (attention_grad_errors). The step and the
+# re-run share all but the attention: in fp32 they differ in the order of
+# the sums; in bf16 by a rounding (2^-8 of the value) of the output and of
+# dq, dk and dv here and there. A gradient of the wrong sign or scale, or
+# from another block, is O(1) away.
+TOL_PROJ_GRAD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # The generator's launches per forward.
 EXPECTED_PER_FORWARD = {"fused_ir": 9, "depthwise3x3": 17,
                         "cross_attention": 4}
@@ -268,3 +297,86 @@ def time_launches(table, calls, timer, plain: bool = True):
             t["ops_ms"] += ops_ms
             t["max_abs_err"] = max(t["max_abs_err"], err)
     return totals, per_launch, failures
+
+
+def grad_agreement(ours: dict, plain: dict, exact: dict,
+                   zero_norm: float = 1e-7) -> dict:
+    """Leaf by leaf (name -> gradient), how far ``ours`` and ``plain`` are
+    from ``exact``, relative to the exact leaf's norm. Returns the
+    relative errors, the leaves that fail GRAD_LEAF_RATIO and whether the
+    rms ratio is within GRAD_RMS_RATIO. A leaf whose exact gradient is zero
+    (a bias ahead of a train-mode BatchNorm) must be zero to rounding."""
+    rows, bad = {}, []
+    for name, g64 in exact.items():
+        g64 = g64.double()
+        a, b = ours[name].double(), plain[name].double()
+        norm = g64.norm().item()
+        if norm < zero_norm:
+            if max(a.abs().max().item(), b.abs().max().item()) > 1e-5:
+                bad.append(f"{name}: exact gradient zero, got "
+                           f"{a.abs().max().item():.3g}")
+            continue
+        e_ours = (a - g64).norm().item() / norm
+        e_plain = (b - g64).norm().item() / norm
+        rows[name] = (e_ours, e_plain)
+        if e_ours > GRAD_LEAF_RATIO * e_plain + GRAD_LEAF_SLACK:
+            bad.append(f"{name}: {e_ours:.3g} from exact, plain "
+                       f"{e_plain:.3g}")
+    rms_ours = float(np.sqrt(np.mean([r[0] ** 2 for r in rows.values()])))
+    rms_plain = float(np.sqrt(np.mean([r[1] ** 2 for r in rows.values()])))
+    return dict(errors=rows, bad=bad, rms=rms_ours, rms_plain=rms_plain,
+                ok=not bad and rms_ours <= GRAD_RMS_RATIO * rms_plain + 1e-4)
+
+
+def record_attention(model) -> tuple[dict, list]:
+    """Hooks on every CrossAttention of ``model`` that record, in its next
+    forward, the module's inputs and parameters and then the gradient of
+    its output (a step with one forward: no grad_accum, no remat). Returns
+    (records by module name, the hooks' handles)."""
+    from ..nn.unet import CrossAttention
+
+    records, handles = {}, []
+
+    def hook(name):
+        def run(module, inputs, out):
+            rec = records[name] = dict(
+                inputs=tuple(t.detach() for t in inputs),
+                params={n: p.detach().clone()
+                        for n, p in module.named_parameters()})
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach()))
+        return run
+
+    for name, m in model.named_modules():
+        if isinstance(m, CrossAttention):
+            handles.append(m.register_forward_hook(hook(name)))
+    return records, handles
+
+
+def attention_grad_errors(model, records: dict, ops) -> dict:
+    """For each attention projection's weight (``<block>.query_conv.weight``
+    and the key's and value's): the relative error, over the re-run's norm,
+    between the gradient that the recorded step left in ``.grad`` and the
+    module re-run through ``ops`` on the recorded inputs, parameters and
+    output gradient (see TOL_PROJ_GRAD)."""
+    from torch.func import functional_call
+
+    errors = {}
+    for name, rec in records.items():
+        module = model.get_submodule(name)
+        params = {n: p.clone().requires_grad_()
+                  for n, p in rec["params"].items()}
+        kept, module.ops = module.ops, ops
+        try:
+            with torch.enable_grad():
+                out = functional_call(module, params, rec["inputs"])
+                grads = torch.autograd.grad(out, list(params.values()),
+                                            rec["grad"])
+        finally:
+            module.ops = kept
+        leaves = dict(module.named_parameters())
+        for n, g in zip(params, grads):
+            if n.endswith("_conv.weight"):
+                g = g.double()
+                errors[f"{name}.{n}"] = ((leaves[n].grad.double() - g).norm()
+                                         / g.norm()).item()
+    return errors

@@ -17,7 +17,10 @@ runs its kernels:
     LeakyReLU stage in ``kernels/depthwise.py``, its 1x1 convs as
     ``F.conv2d``.
 
-In train mode the blocks run the plain reference modules.
+In train mode the blocks run the plain reference modules (no kernel),
+with their fp32 parameters cast to the compute dtype, as the JAX model
+does; BatchNorm then normalizes with the batch statistics and updates its
+running statistics as flax does (:class:`BatchNorm2d`).
 
 Numerics (reference, fp32 eval): LeakyReLU slope 0.01, BatchNorm eps 1e-5,
 bilinear 2x upsample with align_corners=True.
@@ -71,6 +74,41 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+class _FlaxRunningStats:
+    """Train mode as flax's ``BatchNorm`` (calipsync_tpu/nn/blocks.py:30-46):
+    normalize with the batch mean and biased variance, then move the running
+    statistics 0.1 of the way to the batch's, the variance the biased one.
+    torch's own module moves it to the unbiased one, n/(n-1) times larger,
+    which shows at the 10x10 maps and in ``MLPFusion``'s BN1d at small
+    batch. The batch statistics come from the normalization itself
+    (``native_batch_norm``'s fp32 mean and 1/sqrt(var + eps)), so nothing
+    reads the activations twice, and the running buffers are not inputs
+    of the autograd graph, so updating them between the forward and the
+    backward is safe."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean),
+                                    self.momentum)
+            self.running_var.lerp_(
+                invstd.to(self.running_var).pow(-2) - self.eps,
+                self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                dim: int = 1) -> torch.Tensor:
     """BatchNorm over channel axis ``dim``: eval mode applies the folded
@@ -84,19 +122,19 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return x * s.to(x.dtype).view(shape) + t.to(x.dtype).view(shape)
 
 
-def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d,
+def conv_bn(cv: nn.Conv2d, bn: nn.BatchNorm2d,
             x: torch.Tensor) -> torch.Tensor:
     """conv -> BatchNorm; eval mode folds the BN (and the conv's own bias)
     into one conv in x.dtype."""
     if bn.training:
-        return bn(conv(x))
+        return bn(conv(cv, x))
     s, t = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
                    bn.eps)
-    if conv.bias is not None:
-        t = t + conv.bias.float() * s
-    w = conv.weight.float() * s[:, None, None, None]
-    return F.conv2d(x, w.to(x.dtype), t.to(x.dtype), conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    if cv.bias is not None:
+        t = t + cv.bias.float() * s
+    w = cv.weight.float() * s[:, None, None, None]
+    return F.conv2d(x, w.to(x.dtype), t.to(x.dtype), cv.stride,
+                    cv.padding, cv.dilation, cv.groups)
 
 
 def conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -128,14 +166,14 @@ class InvertedResidual(nn.Module):
         self.use_res_connect = use_res_connect
         self.conv = nn.Sequential(
             nn.Conv2d(inp, hidden, 1, bias=False),
-            nn.BatchNorm2d(hidden, eps=BN_EPS),
+            BatchNorm2d(hidden, eps=BN_EPS),
             nn.LeakyReLU(LEAKY_SLOPE),
             nn.Conv2d(hidden, hidden, 3, stride, 1, groups=hidden,
                       bias=False),
-            nn.BatchNorm2d(hidden, eps=BN_EPS),
+            BatchNorm2d(hidden, eps=BN_EPS),
             nn.LeakyReLU(LEAKY_SLOPE),
             nn.Conv2d(hidden, oup, 1, bias=False),
-            nn.BatchNorm2d(oup, eps=BN_EPS),
+            BatchNorm2d(oup, eps=BN_EPS),
             nn.LeakyReLU(LEAKY_SLOPE),
         )
         self.ops = KERNEL_OPS
@@ -179,7 +217,9 @@ class InvertedResidual(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y = self.conv(x)
+            y = x
+            for i in (0, 3, 6):
+                y = leaky_relu(conv_bn(self.conv[i], self.conv[i + 1], y))
             return x + y if self.use_res_connect else y
         f = self.folded(x.dtype)
         if self.stride == 1 and x.shape[2] * x.shape[3] >= FUSED_IR_MIN_HW:

@@ -19,15 +19,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import (BN_EPS, KERNEL_OPS, Down, DoubleConvDW, InConvDw,
-                     InvertedResidual, OutConv, Up, batch_norm, conv,
-                     conv_bn, leaky_relu, nchw, use_plain_ops)
+from .blocks import (BN_EPS, KERNEL_OPS, BatchNorm1d, BatchNorm2d, Down,
+                     DoubleConvDW, InConvDw, InvertedResidual, OutConv, Up,
+                     batch_norm, conv, conv_bn, leaky_relu, nchw,
+                     use_plain_ops)
 
 CH = (32, 64, 128, 256, 512)  # reference channel plan (module/unet.py:277)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS)
 
 
 class AudioConvHubert(nn.Module):
@@ -119,9 +120,9 @@ class MLPFusion(nn.Module):
     def __init__(self, in_features: int, hidden: int, out_features: int):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden)
-        self.bn1 = nn.BatchNorm1d(hidden, eps=BN_EPS)
+        self.bn1 = BatchNorm1d(hidden, eps=BN_EPS)
         self.fc2 = nn.Linear(hidden, out_features)
-        self.bn2 = nn.BatchNorm1d(out_features, eps=BN_EPS)
+        self.bn2 = BatchNorm1d(out_features, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

@@ -50,8 +50,27 @@ then, on the card and with no fallback anywhere:
      the format chosen; (d) ``python -m calipsync_tpu_torch.cli infer``
      in a subprocess with checkpoints written here.
 
-Every path that runs the generator (4, the four runs of 6b, 6c, 6d) reads the launch counters, set to 0 just before it, just after it,
-and must show whole forwards of 9/17/4 launches.
+  7. trains (random weights, a synthetic step-1 speaker from --seed):
+     (a) the attention's gradients through the kernel against autograd
+     through its plain version at the training shape (B=16), fp32 with
+     TF32 off and bf16, and forward + backward ms; (b) one full-width
+     train step at B=16, kernels against plain versions: in fp32 with
+     TF32 off every gradient leaf against the plain versions in fp64
+     (kernels/measure.py grad_agreement); in fp32 and bf16 the attention
+     projections' gradients against each block re-run through the plain
+     version on the step's own inputs (measure.attention_grad_errors); (c)
+     the resident bf16 step's ms (the first apart), peak memory, an epoch
+     resident against streaming, then train_digital_model for two epochs
+     (bf16, B=16, the perceptual term on) and a third resumed from its
+     checkpoint, the loss falling; (d) ``python -m
+     calipsync_tpu_torch.cli train`` in a subprocess for one epoch and its
+     generator.pth served through the kernels.
+
+Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
+7c, 7d) reads the launch counters, set to 0 just before it, just after
+it, and must show whole forwards: 9/17/4 launches in eval mode, 0/0/4 in
+train mode (the blocks run their plain modules; the attention is the
+kernel).
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -408,40 +427,53 @@ def serve(torch, timer):
 
 def profile_request(torch, synth, feats):
     """One bgr request under torch.profiler: its wall time, the device's
-    busy share (kernel time over wall time; one stream, so kernels do not
-    overlap) and the kernels with the most device time. The profiler slows
-    the host, so the busy share it shows is an upper bound."""
+    busy share and the kernels with the most device time."""
+    def request():
+        for _ in synth.iterate_synthesized_frames(feats):
+            pass
+
+    return device_profile(torch, request, f"request (bgr, {len(feats)} "
+                                          "frames)")
+
+
+def device_profile(torch, fn, what: str):
+    """``fn`` under torch.profiler: its wall time, the device's busy share
+    (kernel time over wall time; one stream, so kernels do not overlap)
+    and the kernels with the most device time. The profiler slows the
+    host, so the busy share it shows is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in synth.iterate_synthesized_frames(feats):
-            pass
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    kernels, spans = [], []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:  # the attribute's name before torch 2.4
                 us = e.self_cuda_time_total
-            kernels.append((e.key, us / 1e3))
+            # a user annotation (Optimizer.step#Adam.step) spans its
+            # kernels on the device timeline: not busy time of its own
+            (spans if getattr(e, "is_user_annotation", False)
+             else kernels).append((e.key, us / 1e3))
     kernels.sort(key=lambda kv: -kv[1])
     busy_ms = sum(ms for _, ms in kernels)
     if busy_ms == 0:
-        print("profiled request: the profiler recorded no device time "
+        print(f"profiled {what}: the profiler recorded no device time "
               "(device busy share not measured)")
         return {"wall_ms": wall_ms, "device_busy_ms": None}
-    print(f"profiled request (bgr, {len(feats)} frames): wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms = "
-          f"{busy_ms / wall_ms:.3f} of wall")
+    print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall")
     for name, ms in kernels[:8]:
         print(f"  {ms:9.3f} ms  {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
-            "top_kernels_ms": kernels[:20]}
+            "top_kernels_ms": kernels[:20], "kernels_ms": kernels,
+            "annotations_ms": spans}
 
 
 # ------------------------------------------------ audio in, video out
@@ -965,6 +997,390 @@ def cli_phase(torch, ex, data, tmp, seed, out):
     return res["kernel_launches"]
 
 
+# --------------------------------------------------------------- training
+
+TRAIN_BATCH = 16     # TrainConfig's default
+TRAIN_FRAMES = 250   # the synthetic speaker: ~10 s of video
+TRAIN_EPOCHS = 2     # then one more, resumed from the checkpoint
+# the attention of a train step: (B, N, D, C)
+TRAIN_ATTN = (TRAIN_BATCH, 100, 64, 512)
+TRAIN_LAUNCHES = {"fused_ir": 0, "depthwise3x3": 0, "cross_attention": 4}
+
+
+def attention_backward_phase(torch, timer, out):
+    """(a) dq, dk and dv through the kernel (its forward, the plain
+    backward) against autograd through cross_attention_plain at the
+    training shape, fp32 with TF32 off then bf16, q and k at 0.2 so that
+    the softmax is not one-hot; and forward + backward ms of each."""
+    from calipsync_tpu_torch.kernels import cross_attention, measure
+    from calipsync_tpu_torch.kernels.cross_attention import \
+        cross_attention_plain
+
+    b, n, d, c = TRAIN_ATTN
+    rng = np.random.default_rng(5)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+
+    q0, k0, v0, g0 = t((b, n, d), 0.2), t((b, n, d), 0.2), t((b, n, c)), \
+        t((b, n, c))
+    res = {}
+    for dtype, tol in ((torch.float32, measure.TOL_GRAD_FP32),
+                       (torch.bfloat16, measure.TOL_GRAD_BF16)):
+        q, k, v = (x.to(dtype).requires_grad_() for x in (q0, k0, v0))
+        g = g0.to(dtype)
+
+        def run(fn):
+            return torch.autograd.grad(fn(q, k, v), (q, k, v), g)
+
+        before = cross_attention.launches
+        ours = run(cross_attention)
+        torch.cuda.synchronize()
+        check(cross_attention.launches == before + 1,
+              "attention backward: the kernel did not launch")
+        ref = run(cross_attention_plain)
+        errs = {}
+        for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+            err, ok = measure.max_err(a, r, tol)
+            print(f"attention {name} {str(dtype)[6:]} {TRAIN_ATTN}: kernel "
+                  f"vs plain max abs err {err:.3g} ({measure.tol_text(tol)}"
+                  f", grad rms {r.float().pow(2).mean().sqrt().item():.3g})")
+            check(ok and a.dtype == dtype and a.shape == r.shape,
+                  f"attention {name} {dtype}: kernel and plain disagree")
+            errs[name] = err
+        ms = timer.ms(lambda: run(cross_attention))
+        plain_ms = timer.ms(lambda: run(cross_attention_plain))
+        print(f"attention forward + backward {str(dtype)[6:]}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        res[str(dtype)[6:]] = dict(max_abs_err=errs, ms=ms,
+                                   plain_ms=plain_ms)
+    out["attention_backward"] = res
+    return res
+
+
+def train_batch(seed: int):
+    """A host batch of the training shape and a feature array, from seed."""
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.integers(0, 256, (TRAIN_BATCH, 160, 160, 3),
+                             dtype=np.uint8)
+             for k in ("ref", "masked", "target")}
+    batch["index"] = rng.integers(0, 64, TRAIN_BATCH).astype(np.int32)
+    return batch, rng.standard_normal((64, 2, 1024)).astype(np.float32)
+
+
+def train_step_phase(torch, out):
+    """(b) One full-width train step (B=16, the perceptual term on, random
+    weights with the attention gammas set), the same state and batch
+    through the kernels and through the plain versions: in fp32 with TF32
+    off, the loss and every gradient leaf against the plain versions in
+    fp64 (kernels/measure.py grad_agreement); in fp32 and in bf16, the
+    loss, and the attention projections' gradients against each block
+    re-run through the plain version on the inputs and output gradient
+    recorded in the kernels' step (measure.attention_grad_errors: in bf16
+    the whole step's gradient is too far from fp64 to be compared with
+    it). Each kernels step launches 4 attention kernels and no other
+    (train mode runs the plain blocks)."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.config import TrainConfig
+    from calipsync_tpu_torch.core.weights import (from_jax_generator,
+                                                  from_jax_vgg,
+                                                  random_jax_generator,
+                                                  random_jax_vgg)
+    from calipsync_tpu_torch.kernels import measure
+    from calipsync_tpu_torch.nn.blocks import PLAIN_OPS
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.nn.vgg import VGG19Features
+    from calipsync_tpu_torch.train import trainer
+
+    batch, feats = train_batch(6)
+    sd = from_jax_generator(random_jax_generator(seed=0))
+    vsd = from_jax_vgg(random_jax_vgg(seed=0))
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+
+    def step(dtype, ops, params=torch.float32):
+        model = Generator(dtype=dtype, ops=ops)
+        model.load_state_dict(sd, strict=True)
+        vgg = VGG19Features(dtype)
+        vgg.load_state_dict(vsd, strict=True)
+        state = trainer.create_train_state(model.to("cuda", params), tcfg)
+        records, hooks = measure.record_attention(model)
+        kernels.reset_launches()
+        m = trainer.make_train_step(tcfg)(
+            state, batch, torch.from_numpy(feats).to("cuda", params),
+            vgg.to("cuda", params))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for h in hooks:
+            h.remove()
+        expected = TRAIN_LAUNCHES if ops == "kernels" else {
+            k: 0 for k in TRAIN_LAUNCHES}
+        check(counts == expected, f"train step {ops} {dtype}: launches "
+                                  f"{counts}, expected {expected}")
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        proj = (measure.attention_grad_errors(model, records, PLAIN_OPS)
+                if ops == "kernels" else None)
+        return float(m["loss"]), grads, counts, proj
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        l64, exact, _, _ = step(torch.float64, "plain", torch.float64)
+        res, total = {}, {k: 0 for k in TRAIN_LAUNCHES}
+        attn = [n for n in exact if ".cross_attention." in n
+                and n.endswith("_conv.weight")]
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            lk, gk, counts, proj = step(dtype, "kernels")
+            lp, gp, _, _ = step(dtype, "plain")
+            total = {k: total[k] + counts[k] for k in total}
+            name = str(dtype)[6:]
+            print(f"train step {name} B={TRAIN_BATCH}: loss kernels "
+                  f"{lk:.6f}, plain {lp:.6f}, plain fp64 {l64:.6f}")
+            check(abs(lk - lp) <= rtol * abs(lp),
+                  f"train step {name}: losses {lk} and {lp}")
+            tol = measure.TOL_PROJ_GRAD[dtype]
+            worst = max(proj.items(), key=lambda kv: kv[1])
+            print(f"train step {name}: attention projections' gradients "
+                  f"against each block re-run through the plain version: "
+                  f"{len(proj)} leaves, worst {worst[0]} {worst[1]:.3g} "
+                  f"(limit {tol:g} of the leaf's norm)")
+            check(sorted(proj) == sorted(attn) and worst[1] <= tol,
+                  f"train step {name}: the attention projections' "
+                  f"gradients disagree with the plain version: {worst}")
+            for n in attn:
+                check(gk[n].abs().max().item() > 0,
+                      f"train step {name}: no gradient for {n}")
+            res[name] = dict(loss=lk, plain_loss=lp, proj_grad_errors=proj)
+            if dtype != torch.float32:
+                continue
+            agree = measure.grad_agreement(gk, gp, exact)
+            worst = max(agree["errors"].items(),
+                        key=lambda kv: kv[1][0] / max(kv[1][1], 1e-12))
+            print(f"train step {name}: {len(agree['errors'])} gradient "
+                  f"leaves, rms relative error to fp64 kernels "
+                  f"{agree['rms']:.3g}, plain {agree['rms_plain']:.3g}; "
+                  f"worst leaf {worst[0]} {worst[1][0]:.3g} vs "
+                  f"{worst[1][1]:.3g} (limits {measure.GRAD_LEAF_RATIO}x a "
+                  f"leaf, {measure.GRAD_RMS_RATIO}x rms)")
+            check(agree["ok"], f"train step {name}: gradients disagree: "
+                               + "; ".join(agree["bad"][:5]))
+            res[name].update(rms_err=agree["rms"],
+                             plain_rms_err=agree["rms_plain"],
+                             leaves=len(agree["errors"]),
+                             worst_leaf=[worst[0], *worst[1]])
+        res["fp64_loss"] = l64
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out["train_step"] = res
+    return total
+
+
+def train_timing(torch, data, base, vgg_path, out):
+    """Step time of the resident bf16 step at B=16 with the perceptual
+    term (each step synchronized; the first one apart: the train-mode
+    shapes' cuDNN plans are built there), peak device memory, and one epoch
+    each, resident and streaming (LipSyncDataset + Prefetcher into pinned
+    memory, copied on this thread), one synchronize at the end."""
+    import statistics
+
+    from calipsync_tpu_torch.config import TrainConfig
+    from calipsync_tpu_torch.data.dataset import (LipSyncDataset, Prefetcher,
+                                                  ResidentLipSyncDataset,
+                                                  batch_iterator, pin_memory)
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.nn.vgg import load_vgg19
+    from calipsync_tpu_torch.train import trainer
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    model = Generator(dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(base, weights_only=True), strict=True)
+    state = trainer.create_train_state(model.cuda(), tcfg)
+    vgg = load_vgg19(vgg_path, torch.bfloat16, "cuda")
+    ds = ResidentLipSyncDataset(data, device="cuda")
+    feats = torch.from_numpy(ds.audio_feats).cuda()
+    step = trainer.make_resident_train_step(tcfg)
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in ds.epoch_indices(TRAIN_BATCH, rng):
+        t0 = time.perf_counter()
+        step(state, ds.store, *b, feats, vgg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times[1:])
+    b = next(ds.epoch_indices(TRAIN_BATCH, rng))
+    profiled = device_profile(
+        torch, lambda: step(state, ds.store, *b, feats, vgg),
+        f"train step (bf16, B={TRAIN_BATCH})")
+    adam = sum(ms for name, ms in profiled.get("kernels_ms", [])
+               if "multi_tensor" in name)
+    adam_span = sum(ms for name, ms in profiled.get("annotations_ms", [])
+                    if name.startswith("Optimizer.step"))
+    print(f"  Adam's update: its multi-tensor kernels {adam:.3f} ms, its "
+          f"span on the device {adam_span:.3f} ms")
+
+    def epoch(batches, fn):
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for b in batches:
+            fn(b)
+            n += TRAIN_BATCH
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    resident = epoch(ds.epoch_indices(TRAIN_BATCH, rng),
+                     lambda b: step(state, ds.store, *b, feats, vgg))
+    host_step = trainer.make_train_step(tcfg)
+    with Prefetcher(batch_iterator(LipSyncDataset(data), TRAIN_BATCH, rng,
+                                   drop_last=True),
+                    depth=2, put_fn=pin_memory) as pf:
+        streaming = epoch(pf, lambda b: host_step(state, b, feats, vgg))
+    print(f"train step bf16 B={TRAIN_BATCH} (resident, perceptual on): "
+          f"first {times[0]:.1f} ms, then median {step_ms:.2f} ms "
+          f"({TRAIN_BATCH / step_ms * 1e3:.1f} samples/s; steps "
+          f"{', '.join(f'{t:.1f}' for t in times[1:])}); peak device "
+          f"memory {peak / 2**30:.3f} GiB; an epoch of {len(ds)} samples: "
+          f"resident {resident:.1f} samples/s, streaming (host decode, 4 "
+          f"threads) {streaming:.1f} samples/s")
+    out["train_timing"] = dict(first_step_ms=times[0], step_ms=step_ms,
+                               step_runs_ms=times, peak_bytes=peak,
+                               resident_samples_per_s=resident,
+                               streaming_samples_per_s=streaming,
+                               profile=profiled, adam_ms=adam,
+                               adam_span_ms=adam_span)
+
+
+def train_pipeline_phase(torch, tmp, seed, out):
+    """(c) train_digital_model on a synthetic step-1 speaker (250 frames
+    of 480x480 from --seed), bf16, B=16, the perceptual term on with a
+    random VGG19 .pth, warm-started from a random reference-layout .pth,
+    resident, two epochs, then a third resumed from the checkpoint; (d)
+    the CLI `train` in a subprocess for one epoch, its generator.pth then
+    served through the kernels. Returns the launch counts of each."""
+    import dataclasses
+
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.bench_assets import make_synthetic_step1
+    from calipsync_tpu_torch.cli import load_generator
+    from calipsync_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                            TrainConfig, load_config)
+    from calipsync_tpu_torch.core.weights import (from_jax_generator,
+                                                  from_jax_vgg,
+                                                  random_jax_generator,
+                                                  random_jax_vgg)
+    from calipsync_tpu_torch.kernels.measure import generator_inputs
+    from calipsync_tpu_torch.pipelines.step2_train import (
+        GENERATOR_FILE, train_digital_model)
+
+    t0 = time.perf_counter()
+    data = make_synthetic_step1(os.path.join(tmp, "step1"), TRAIN_FRAMES,
+                                480, seed)
+    base = os.path.join(tmp, "base.pth")
+    base_sd = from_jax_generator(random_jax_generator(seed=0))
+    torch.save(base_sd, base)
+    vgg = os.path.join(tmp, "vgg19.pth")
+    torch.save(from_jax_vgg(random_jax_vgg(seed=0)), vgg)
+    print(f"synthetic step-1 speaker: {TRAIN_FRAMES} frames of 480x480 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    train_timing(torch, data, base, vgg, out)
+
+    cfg = PipelineConfig(model=ModelConfig(dtype="bfloat16"),
+                         train=TrainConfig(batch_size=TRAIN_BATCH,
+                                           epochs=TRAIN_EPOCHS))
+    save = os.path.join(tmp, "run")
+    steps = (TRAIN_FRAMES // TRAIN_BATCH)
+    losses = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train_digital_model(data, save, vgg_path=vgg, unet_checkpoint=base,
+                        cfg=cfg, loss_history=losses, log_every=0)
+    wall = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=TRAIN_EPOCHS + 1))
+    t0 = time.perf_counter()
+    path = train_digital_model(data, save, vgg_path=vgg,
+                               unet_checkpoint=base, cfg=cfg, resume=True,
+                               loss_history=losses, log_every=0)
+    torch.cuda.synchronize()
+    resumed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_epochs = TRAIN_EPOCHS + 1
+    means = [float(np.mean(losses[i * steps:(i + 1) * steps]))
+             for i in range(n_epochs)]
+    print(f"train_digital_model bf16 B={TRAIN_BATCH}, {steps} steps an "
+          f"epoch: {TRAIN_EPOCHS} epochs in {wall:.1f} s, the third "
+          f"resumed in {resumed:.1f} s (set-up included); epoch mean "
+          f"losses {', '.join(f'{m:.5f}' for m in means)}; launches "
+          f"{counts}")
+    check(len(losses) == n_epochs * steps and np.isfinite(losses).all(),
+          f"train_digital_model: {len(losses)} losses, finite "
+          f"{np.isfinite(losses).all()}")
+    check(means[-1] < means[0], "train_digital_model: the loss did not "
+                                "fall")
+    check(path.endswith(f"step_{n_epochs}.pt"), f"checkpoint {path}")
+    check(counts == {k: c * n_epochs * steps for k, c in
+                     TRAIN_LAUNCHES.items()},
+          f"train_digital_model: launches {counts}")
+    trained = torch.load(os.path.join(save, GENERATOR_FILE),
+                         weights_only=True)
+    moved = max((trained[k] - base_sd[k]).abs().max().item()
+                for k in trained if ".cross_attention." in k
+                and k.endswith("_conv.weight"))
+    check(moved > 0, "training did not move the attention projections")
+    out["train_pipeline"] = dict(epoch_mean_loss=means, wall_s=wall,
+                                 resumed_epoch_s=resumed, launches=counts,
+                                 attention_weights_moved=moved)
+
+    save_cli = os.path.join(tmp, "run_cli")
+    cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "train",
+           "--data", data, "--save", save_cli, "--vgg", vgg, "--base", base,
+           "--epochs", "1", "--dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"cli train exited {proc.returncode}")
+    printed = proc.stdout.strip().splitlines()[-1]
+    check(printed == os.path.join(save_cli, GENERATOR_FILE),
+          f"cli train printed {printed!r}")
+    model = load_generator(printed, load_config(
+        overrides={"model": {"dtype": "bfloat16"}})).cuda().eval()
+    x, a = generator_inputs(8, seed=7)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        y = model(x, a)
+        torch.cuda.synchronize()
+    served = kernels.launch_counts()
+    lo, hi, std = y.min().item(), y.max().item(), y.std().item()
+    print(f"cli train (subprocess, one epoch, {cli_wall:.1f} s with "
+          f"start-up): {printed}; served through the kernels: out in "
+          f"[{lo:.4f}, {hi:.4f}], std {std:.4g}")
+    expect_forwards(served, "cli train's generator.pth served", 1)
+    check(bool(torch.isfinite(y).all()) and 0.0 < lo and hi < 1.0
+          and std > 1e-3, "cli train's generator: output saturated")
+    out["cli_train"] = dict(wall_s=cli_wall, out_min=lo, out_max=hi,
+                            out_std=std)
+    return {"train_digital_model": counts, "cli_train_served": served}
+
+
+def training(torch, timer, seed: int, out: dict) -> dict:
+    """The training phases (a)-(d); returns the launch counts of each path
+    that runs the generator."""
+    attention_backward_phase(torch, timer, out)
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(train_pipeline_phase(torch, tmp, seed, out))
+    paths["train_step"] = train_step_phase(torch, out)
+    return paths
+
+
 def print_kernel_resources(_build):
     """Each compiled kernel's registers, static shared memory, spills and
     any performance warning (from ptxas -v in build/nvcc.log), and the
@@ -1094,6 +1510,7 @@ def main() -> int:
     # the audio phases run under PyTorch's default flags, as the CLI does
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     paths.update(audio_to_video(torch, args.seed, metrics))
+    paths.update(training(torch, timer, args.seed, metrics))
 
     kernels_line = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1109,6 +1526,12 @@ def main() -> int:
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
             else "operations",
             "library_ms": t["library_ms"]})
+    # the training path: forward + backward through the kernel at B=16
+    attention = next(k for k in kernels_line
+                     if k["name"] == "cross_attention")
+    attention["train_fwd_bwd_ms"] = {
+        dt: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+        for dt, r in metrics["attention_backward"].items()}
     detail = {"device": smi, "batch": BATCH, "per_launch": per_launch,
               "kernels": kernels_line, "generator_forward_ms": fwd_ms,
               "serving": metrics}
