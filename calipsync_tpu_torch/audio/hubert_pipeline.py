@@ -12,9 +12,11 @@ utils/hubert_extractor.py HubertExtractor):
     one a chunk, for the pipelined offline manager.
 
 Each row is padded up to a multiple of ``bucket_samples`` and run with
-``num_valid_frames`` masking, which is exact for the 'layer' extractor
-(nn/hubert.py); the padded shapes are those of the JAX package, so the
-two compute the same rows.
+``num_valid_samples`` masking, which makes the padding exact for both
+extractors (nn/hubert.py); the padded shapes are those of the JAX
+package, so for the 'layer' extractor (HuBERT-large) the two compute the
+same rows. For the 'group' extractor the JAX package takes the
+GroupNorm's statistics over the padding too.
 """
 
 from __future__ import annotations
@@ -98,8 +100,8 @@ class HubertFeatureExtractor:
             wav = torch.zeros((1, padded_len), dtype=torch.float32)
             wav[0, :row.shape[0]] = torch.from_numpy(row)
             out = self.model(wav.to(self.device),
-                             num_valid_frames=torch.tensor(
-                                 [n_valid], device=self.device))
+                             num_valid_samples=torch.tensor(
+                                 [row.shape[0]], device=self.device))
             outs.append(out[0, :n_valid].float().cpu().numpy())
         return outs
 

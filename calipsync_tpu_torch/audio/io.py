@@ -91,6 +91,27 @@ def load_audio(path: str, sample_rate: int = 16_000,
     return np.array(audio)
 
 
+def extract_wav(video_path: str, wav_path: str,
+                sample_rate: int = 16_000) -> None:
+    """A video's audio track -> a mono wav. A PCM track (what
+    :func:`mux_audio` writes without ffmpeg) decodes through the box-level
+    reader; compressed audio (aac, mp3) needs an ffmpeg binary and raises
+    without one."""
+    pcm = (_try_read_pcm(video_path)
+           if video_path.lower().endswith((".mp4", ".mov")) else None)
+    if pcm is not None:
+        sr, audio = pcm
+        save_wav(wav_path, resample(audio, sr, sample_rate), sample_rate)
+        return
+    if not have_ffmpeg():
+        raise RuntimeError(
+            "this video's audio track is not PCM and there is no ffmpeg "
+            "on the host; provide the audio as a .wav side-car instead")
+    subprocess.run(["ffmpeg", "-v", "error", "-y", "-i", video_path, "-vn",
+                    "-ar", str(sample_rate), "-ac", "1", wav_path],
+                   check=True)
+
+
 def save_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
     from scipy.io import wavfile
 

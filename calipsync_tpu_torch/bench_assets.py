@@ -81,3 +81,146 @@ def make_synthetic_step1(root: str, n_frames: int = 250, res: int = 480,
     np.save(os.path.join(root, "aud_hu.npy"),
             rng.standard_normal((n_frames + 1, 2, 1024)).astype(np.float32))
     return root
+
+
+def make_synthetic_video(path: str, n_frames: int = 250, res: int = 480,
+                         fps: int = 25, seed: int = 42) -> str:
+    """A talking-head stand-in for steps 1 and 3: ``n_frames`` structured
+    frames (:func:`make_synthetic_speaker`'s face and mouth) as an mp4v
+    ``path`` at ``fps``, and a 16 kHz wav side-car of the same length
+    beside it (``path`` with .wav; cv2 cannot demux audio): three gliding
+    tones at a syllable-rate envelope with noise, made from ``seed``.
+    Returns ``path``."""
+    from calipsync_tpu_torch.audio.io import save_wav
+
+    rng = np.random.default_rng(seed)
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         (res, res))
+    if not vw.isOpened():
+        raise RuntimeError(f"cannot open a video writer for {path}")
+    for img, _ in _speaker_frames(n_frames, res, res, rng):
+        vw.write(img)
+    vw.release()
+    t = np.arange(16_000 * n_frames // fps) / 16_000
+    wav = np.zeros_like(t)
+    for _ in range(3):
+        f0, glide = rng.uniform(100, 900), rng.uniform(-40, 40)
+        wav += rng.uniform(0.05, 0.2) * np.sin(
+            2 * np.pi * (f0 * t + glide * t * t / 2) + rng.uniform(0, 6))
+    wav *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(3, 6) * t)
+    wav += rng.standard_normal(t.shape) * 0.01
+    save_wav(os.path.splitext(path)[0] + ".wav", wav.astype(np.float32),
+             16_000)
+    return path
+
+
+def mean_face(seed: int = 0) -> np.ndarray:
+    """A (220,) normalized landmark template shaped as the synthetic
+    speaker's: a 33-point face outline, points 1 and 31 bounding the
+    mouth box at mid-height, point 52 on its top edge, the rest inside."""
+    rng = np.random.default_rng(seed)
+    lms = np.zeros((110, 2), np.float32)
+    theta = np.linspace(0, 2 * np.pi, 33, endpoint=False)
+    lms[:33, 0] = 0.5 + 0.3 * np.cos(theta)
+    lms[:33, 1] = 0.55 + 0.3 * np.sin(theta)
+    lms[33:] = rng.uniform(0.3, 0.7, (77, 2))
+    lms[1] = (0.25, 0.62)
+    lms[31] = (0.75, 0.62)
+    lms[52] = (0.5, 0.45)
+    return lms.reshape(-1)
+
+
+def random_state_dict(module, seed: int, scale: float = 1.0) -> dict:
+    """``module``'s state_dict with seeded random values: conv and linear
+    weights N(0, scale^2 * 2/fan_in), biases and BN shifts N(0, 0.01),
+    BN scales U(0.5, 1.5), running means N(0, 0.1), running variances
+    U(0.5, 1.5); integer buffers kept."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in module.state_dict().items():
+        if not v.is_floating_point() or k.endswith("dfl.conv.weight"):
+            out[k] = v.clone()
+        elif k.endswith("running_var"):
+            out[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith("running_mean"):
+            out[k] = torch.randn(v.shape, generator=g) * 0.1
+        elif v.dim() == 1 and k.endswith("weight"):   # BN / L2Norm scale
+            out[k] = (torch.rand(v.shape, generator=g) + 0.5) * v.abs().max()
+        elif v.dim() == 1:
+            out[k] = torch.randn(v.shape, generator=g) * 0.01
+        else:
+            fan_in = v[0].numel()
+            out[k] = torch.randn(v.shape, generator=g) * (
+                scale * (2.0 / fan_in) ** 0.5)
+    return out
+
+
+def random_pfld_state(seed: int = 0) -> dict:
+    """A seeded train-form PFLD state_dict (``pfld_backbone``'s keys)
+    whose landmarks stay near the mean face: at 0.3 of He's scale the
+    signal keeps its size through the multi-branch blocks (at 1.0 it grows
+    ~14x a block); the output layer is scaled to 5% and its bias set so
+    that the mean residual over 8 seeded random crops is zero."""
+    import torch
+
+    from calipsync_tpu_torch.nn.pfld import PFLDGhostOne
+
+    net = PFLDGhostOne().eval()
+    sd = random_state_dict(net, seed, scale=0.3)
+    sd["conv_out.weight"] *= 0.05
+    net.load_state_dict(sd)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        sd["conv_out.bias"] -= net(torch.rand(8, 192, 192, 3,
+                                              generator=g)).mean(0)
+    return sd
+
+
+def write_face_weights(weights_dir: str, seed: int = 0,
+                       yolo: bool = False) -> str:
+    """Seeded face models in the reference's weights layout, for runs
+    without the real files: ``mean_face.txt`` (:func:`mean_face`),
+    ``sfd_face.pth`` (S3FD), ``checkpoint_epoch_335.pth.tar`` (PFLD, train
+    form under ``pfld_backbone``) and, with ``yolo``,
+    ``yolov8n_face_state_dict.pth``.
+
+    Random weights find no face, so S3FD is arranged to fire on every
+    frame: its box and score heads' weights are zero, its face-class bias
+    is +4 on the third source map (64-pixel priors at stride 16 of the
+    scaled frame) and -10 on the others, so every prior of that map scores
+    0.982 and the boxes are those priors. YOLO is arranged the same way:
+    the last convs of its box and class branches are zero, the class bias
+    +4 at stride 16 and -10 at strides 8 and 32, so every stride-16 anchor
+    scores 0.982 with uniform DFL bins, a box of 15 strides (240 pixels of
+    the 640 letterbox) around it. PFLD is :func:`random_pfld_state`: its
+    landmarks move with the crop by a few pixels around the mean face.
+    Returns ``weights_dir``."""
+    import torch
+
+    from calipsync_tpu_torch.nn.s3fd import S3FDBackbone
+    from calipsync_tpu_torch.nn.yolo import YoloV8Face
+
+    os.makedirs(weights_dir, exist_ok=True)
+    np.savetxt(os.path.join(weights_dir, "mean_face.txt"),
+               mean_face(seed)[None], fmt="%.6f")
+    s3fd = random_state_dict(S3FDBackbone(), seed)
+    for k in range(6):
+        for head in ("loc", "conf"):
+            s3fd[f"{head}.{k}.weight"].zero_()
+            s3fd[f"{head}.{k}.bias"].zero_()
+        s3fd[f"conf.{k}.bias"][-1] = 4.0 if k == 2 else -10.0
+    torch.save(s3fd, os.path.join(weights_dir, "sfd_face.pth"))
+    torch.save({"pfld_backbone": random_pfld_state(seed + 1)},
+               os.path.join(weights_dir, "checkpoint_epoch_335.pth.tar"))
+    if yolo:
+        sd = random_state_dict(YoloV8Face(), seed + 2)
+        for k in range(3):
+            for branch in ("cv2", "cv3"):
+                sd[f"model.22.{branch}.{k}.2.weight"].zero_()
+                sd[f"model.22.{branch}.{k}.2.bias"].zero_()
+            sd[f"model.22.cv3.{k}.2.bias"].fill_(4.0 if k == 1 else -10.0)
+        torch.save(sd, os.path.join(weights_dir,
+                                    "yolov8n_face_state_dict.pth"))
+    return weights_dir

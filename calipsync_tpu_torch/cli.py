@@ -1,6 +1,12 @@
-"""Command-line interface of the port (counterpart of the featurize, train,
-infer and serve commands of calipsync_tpu/cli.py):
+"""Command-line interface of the port (counterpart of the step1, step3,
+clone, featurize, train, infer and serve commands of calipsync_tpu/cli.py):
 
+    python -m calipsync_tpu_torch.cli step1 --video v.mp4 --out data/ \\
+        --weights face_weights/ --hubert hubert_dir/ [--audio v.wav]
+    python -m calipsync_tpu_torch.cli step3 --video v.mp4 --out assets/ \\
+        --weights face_weights/ [--xseg xseg.onnx] [--detect-stride N]
+    python -m calipsync_tpu_torch.cli clone --video v.mp4 --out models/ \\
+        --weights face_weights/ --hubert hubert_dir/ [--epochs N]
     python -m calipsync_tpu_torch.cli featurize --hubert hubert_dir/ \\
         --audio a.wav --out feats.npy
     python -m calipsync_tpu_torch.cli train --data step1_dir/ \\
@@ -10,11 +16,14 @@ infer and serve commands of calipsync_tpu/cli.py):
     python -m calipsync_tpu_torch.cli serve --assets assets/infer_data \\
         --ckpt generator.pth --hubert hubert_dir/ --player null|file
 
-``--hubert`` is a local HF checkpoint directory (``config.json`` and
-``model.safetensors`` or ``pytorch_model.bin``); ``--ckpt`` a generator
-state_dict in the reference torch layout (what the JAX package's
-``export-torch`` and the port's ``train`` write). Every command runs on
-the card unless given ``--device cpu``.
+``--weights`` is the face-model directory in the reference's layout:
+``mean_face.txt``, ``checkpoint_epoch_335.pth.tar`` (PFLD) and
+``yolov8n_face_state_dict.pth`` (YOLOv8n-face, used when present) or
+``sfd_face.pth`` (S3FD). ``--hubert`` is a local HF checkpoint directory
+(``config.json`` and ``model.safetensors`` or ``pytorch_model.bin``);
+``--ckpt`` a generator state_dict in the reference torch layout (what the
+JAX package's ``export-torch`` and the port's ``train`` write). Every
+command runs on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,39 @@ import argparse
 import json
 import os
 import time
+
+
+def build_lip_detector(weights_dir: str, detect_stride: int = 1,
+                       device=None):
+    """A face-model directory -> LipDetector on ``device``. The detector
+    follows the reference's priority: YOLOv8n-face when
+    ``yolov8n_face_state_dict.pth`` (a plain ultralytics state_dict) is
+    there, S3FD (``sfd_face.pth``) otherwise. PFLD comes from the
+    landmark tar's ``pfld_backbone`` in the train form and is folded to
+    the deploy form."""
+    from calipsync_tpu_torch.core.weights import load_torch_state_dict
+    from calipsync_tpu_torch.nn.pfld import fold_mobileone
+    from calipsync_tpu_torch.nn.s3fd import S3FDDetector
+    from calipsync_tpu_torch.nn.yolo import YoloV8FaceDetector
+    from calipsync_tpu_torch.vision.lip_detector import (LipDetector,
+                                                         load_mean_face)
+
+    mean_face = load_mean_face(os.path.join(weights_dir, "mean_face.txt"))
+    yolo_path = os.path.join(weights_dir, "yolov8n_face_state_dict.pth")
+    if os.path.exists(yolo_path):
+        detector = YoloV8FaceDetector(load_torch_state_dict(yolo_path),
+                                      batch_size=16, device=device)
+    else:
+        detector = S3FDDetector(load_torch_state_dict(
+            os.path.join(weights_dir, "sfd_face.pth")), device=device)
+    pfld = load_torch_state_dict(
+        os.path.join(weights_dir, "checkpoint_epoch_335.pth.tar"),
+        key="pfld_backbone")
+    # the reference's unused spatial-transformer branch
+    pfld = {k: v for k, v in pfld.items()
+            if not k.startswith("localization.")}
+    return LipDetector(fold_mobileone(pfld), mean_face, detector,
+                       detect_stride=detect_stride, device=device)
 
 
 def build_hubert(hubert_path: str, device=None):
@@ -74,6 +116,68 @@ def _load_cfg(args):
     from calipsync_tpu_torch.config import load_config
 
     return load_config(args.config)
+
+
+def cmd_step1(args):
+    """Video -> step-1 training data directory."""
+    from calipsync_tpu_torch.pipelines.step1_preprocess import \
+        TrainPreprocessor
+
+    cfg = _load_cfg(args)
+    lip = build_lip_detector(args.weights, device=args.device)
+    try:
+        out = TrainPreprocessor(
+            lip, build_hubert(args.hubert, args.device),
+            crop=cfg.crop).process_video(args.video, args.out,
+                                         audio_path=args.audio)
+    finally:
+        lip.close()
+    print(json.dumps(out))
+
+
+def cmd_step3(args):
+    """Video -> inference assets (``infer_data``)."""
+    from calipsync_tpu_torch.pipelines.step3_prepare import \
+        InferPreprocessor
+
+    _load_cfg(args)  # raises on settings the port cannot honour
+    mask_gen = None
+    if args.xseg:
+        from calipsync_tpu_torch.vision.xseg import XSegMaskGenerator
+
+        mask_gen = XSegMaskGenerator(model_path=args.xseg)
+    lip = build_lip_detector(args.weights, detect_stride=args.detect_stride,
+                             device=args.device)
+    try:
+        out = InferPreprocessor(lip, mask_generator=mask_gen).process_video(
+            args.video, args.out)
+    finally:
+        lip.close()
+    print(json.dumps(out))
+
+
+def cmd_clone(args):
+    """Video -> fine-tuned generator and inference assets; prints their
+    paths and each stage's seconds."""
+    from calipsync_tpu_torch.config import load_config
+    from calipsync_tpu_torch.pipelines.all_pipeline import clone_video_local
+
+    train = {} if args.epochs is None else {"epochs": args.epochs}
+    cfg = load_config(args.config, overrides={
+        "train": train, "model": {"dtype": args.dtype}})
+    timings: dict = {}
+    lip = build_lip_detector(args.weights, device=args.device)
+    try:
+        generator, model_id = clone_video_local(
+            args.video, args.out, lip, build_hubert(args.hubert, args.device),
+            vgg_path=args.vgg, unet_checkpoint=args.base, cfg=cfg,
+            timings=timings, device=args.device)
+    finally:
+        lip.close()
+    print(json.dumps({"generator": generator, "model_id": model_id,
+                      "infer_data": os.path.join(args.out, model_id,
+                                                 "infer_data"),
+                      "timings": timings}))
 
 
 def cmd_featurize(args):
@@ -189,6 +293,52 @@ def main(argv=None):
         sp.add_argument("--device", default=None,
                         help="'cuda' (default; fails without a GPU) or "
                              "'cpu'")
+
+    def face_weights(sp):
+        sp.add_argument("--weights", required=True,
+                        help="face-model directory (mean_face.txt, "
+                             "checkpoint_epoch_335.pth.tar, "
+                             "yolov8n_face_state_dict.pth or sfd_face.pth)")
+
+    sp = sub.add_parser("step1", help="video -> training data")
+    sp.add_argument("--video", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--audio", default=None, help="side-car wav")
+    face_weights(sp)
+    common(sp)
+    sp.set_defaults(fn=cmd_step1)
+
+    sp = sub.add_parser("step3", help="video -> inference assets")
+    sp.add_argument("--video", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--xseg", default=None,
+                    help="xseg.onnx: write per-frame compositing masks")
+    sp.add_argument("--detect-stride", type=int, default=1,
+                    help="detect faces every Nth frame, reusing the boxes "
+                         "in between (PFLD still runs on every frame)")
+    face_weights(sp)
+    sp.add_argument("--config", default=None, help="JSON config file")
+    sp.add_argument("--device", default=None,
+                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    sp.set_defaults(fn=cmd_step3)
+
+    sp = sub.add_parser("clone", help="video -> fine-tuned speaker (step 1, "
+                                      "train, step 3)")
+    sp.add_argument("--video", required=True)
+    sp.add_argument("--out", required=True, help="models directory")
+    sp.add_argument("--vgg", default=None,
+                    help="vgg19 .pth for the perceptual term (none: L1 "
+                         "only)")
+    sp.add_argument("--base", default=None,
+                    help="generator .pth to start from")
+    sp.add_argument("--dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"],
+                    help="training compute dtype, over the config's "
+                         "(bfloat16: the clone recipe)")
+    sp.add_argument("--epochs", type=int, default=None)
+    face_weights(sp)
+    common(sp)
+    sp.set_defaults(fn=cmd_clone)
 
     sp = sub.add_parser("featurize",
                         help="audio file -> HuBERT feature rows .npy")

@@ -1,7 +1,8 @@
 """Training checkpoints (counterpart of calipsync_tpu/core/checkpoint.py).
 
 A checkpoint, ``{directory}/step_{N}.pt``, holds the generator's state_dict
-(the reference layout), the Adam state and the update count, written with
+(the reference layout), the Adam state, the update count and the state of
+the data-order generator (numpy's ``bit_generator.state``), written with
 ``torch.save`` to a temporary name and renamed into place, and read back
 with ``torch.load(weights_only=True)``. step2 keys them by epoch.
 
@@ -18,6 +19,7 @@ import signal
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 _NAME = re.compile(r"step_(\d+)\.pt")
@@ -27,15 +29,20 @@ def checkpoint_path(directory, step: int) -> pathlib.Path:
     return pathlib.Path(directory).absolute() / f"step_{step}.pt"
 
 
-def save_checkpoint(directory, step: int, state) -> pathlib.Path:
+def save_checkpoint(directory, step: int, state,
+                    data_rng_state: Optional[dict] = None) -> pathlib.Path:
     """Save a :class:`~calipsync_tpu_torch.train.trainer.TrainState` under
-    ``step``; returns the path."""
+    ``step``, with ``data_rng_state`` (a numpy ``bit_generator.state``:
+    where the data order resumes) when given; returns the path."""
     path = checkpoint_path(directory, step)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".pt.tmp")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, tmp)
+    saved = {"model": state.model.state_dict(),
+             "optimizer": state.optimizer.state_dict(),
+             "step": state.step}
+    if data_rng_state is not None:
+        saved["data_rng"] = data_rng_state
+    torch.save(saved, tmp)
     os.replace(tmp, path)
     return path
 
@@ -49,9 +56,11 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory, state, step: Optional[int] = None):
+def restore_checkpoint(directory, state, step: Optional[int] = None,
+                       rng: Optional[np.random.Generator] = None):
     """Load the checkpoint at ``step`` (default: the latest) into
-    ``state`` (model and optimizer on their devices); returns ``state``."""
+    ``state`` (model and optimizer on their devices), and its data-order
+    state into ``rng`` when both are there; returns ``state``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -61,6 +70,8 @@ def restore_checkpoint(directory, state, step: Optional[int] = None):
     state.model.load_state_dict(saved["model"], strict=True)
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
+    if rng is not None and "data_rng" in saved:
+        rng.bit_generator.state = saved["data_rng"]
     return state
 
 

@@ -420,3 +420,137 @@ def random_jax_vgg(seed: int = 0) -> Dict:
             "bias": (rng.standard_normal(width) * 0.01).astype(np.float32)}
         cin = width
     return {"params": params}
+
+
+# ------------------------------------------------- face models (preprocess)
+
+def load_torch_state_dict(path: str, key: str | None = None
+                          ) -> Dict[str, torch.Tensor]:
+    """A .pth / .pth.tar -> {key: CPU tensor} (own copy of
+    calipsync_tpu/core/weights.py:33): a bare state_dict, one wrapped as
+    ``{'state_dict': ...}``, or with ``key`` a named sub-dict such as
+    ``'pfld_backbone'`` of the landmark tar. Read with
+    ``torch.load(weights_only=True)``; entries that are not tensors are
+    dropped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if key is not None and isinstance(obj, dict) and key in obj:
+        obj = obj[key]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def from_jax_s3fd(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``S3FDBackbone`` variables -> ``sfd_face.pth``'s keys, strict-
+    loadable into :class:`calipsync_tpu_torch.nn.s3fd.S3FDBackbone` (the
+    inverse of calipsync_tpu/nn/s3fd.py:import_s3fd)."""
+    from calipsync_tpu_torch.nn.s3fd import _VGG_CONV_IDX
+
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for ours, theirs in enumerate(_VGG_CONV_IDX):
+        _conv_bias(out, f"vgg.{theirs}", p[f"vgg{ours}"])
+    for i in (3, 4, 5):
+        out[f"L2Norm{i}_3.weight"] = _t(p[f"l2norm{i}_3"]["weight"])
+    for i in range(4):
+        _conv_bias(out, f"extras.{i}", p[f"extra{i}"])
+    for i in range(6):
+        _conv_bias(out, f"loc.{i}", p[f"loc{i}"])
+        _conv_bias(out, f"conf.{i}", p[f"conf{i}"])
+    return out
+
+
+def _pfld_block(out: Dict, tp: str, params: Mapping, stats: Mapping) -> None:
+    """One MobileOne block, train form (branches) or deploy form."""
+    if "reparam" in params:
+        _conv_bias(out, f"{tp}.reparam_conv", params["reparam"])
+        return
+    i = 0
+    while f"branch{i}_conv" in params:
+        out[f"{tp}.rbr_conv.{i}.conv.weight"] = _conv_kernel(
+            params[f"branch{i}_conv"]["kernel"])
+        _bn(out, f"{tp}.rbr_conv.{i}.bn", params[f"branch{i}_bn"],
+            stats[f"branch{i}_bn"])
+        i += 1
+    if "scale_conv" in params:
+        out[f"{tp}.rbr_scale.conv.weight"] = _conv_kernel(
+            params["scale_conv"]["kernel"])
+        _bn(out, f"{tp}.rbr_scale.bn", params["scale_bn"], stats["scale_bn"])
+    if "skip_bn" in params:
+        _bn(out, f"{tp}.rbr_skip", params["skip_bn"], stats["skip_bn"])
+
+
+def from_jax_pfld(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``PFLDGhostOne`` variables -> the port's state_dict: the train
+    form ({'params', 'batch_stats'}, the keys of
+    ``checkpoint_epoch_335.pth.tar``'s ``pfld_backbone``; the inverse of
+    calipsync_tpu/nn/pfld.py:import_pfld) or the deploy form (the
+    ``fold_mobileone_params`` output, ``reparam_conv`` keys), strict-
+    loadable into :class:`calipsync_tpu_torch.nn.pfld.PFLDGhostOne` with
+    ``deploy`` to match."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+
+    def ghost(tp, pp, ss):
+        _pfld_block(out, f"{tp}.primary_conv", pp["primary"],
+                    ss.get("primary", {}))
+        _pfld_block(out, f"{tp}.cheap_operation", pp["cheap"],
+                    ss.get("cheap", {}))
+
+    for name, sub in p.items():
+        st = s.get(name, {})
+        if name in ("conv1", "conv2", "conv7"):
+            _pfld_block(out, name, sub, st)
+        elif name == "conv8":
+            out["conv8.0.weight"] = _conv_kernel(sub["kernel"])
+        elif name == "conv_out":
+            w = _t(np.asarray(sub["kernel"], np.float32).T)
+            out["conv_out.weight"] = w[:, :, None, None].contiguous()
+            out["conv_out.bias"] = _t(sub["bias"])
+        else:  # a bottleneck
+            ghost(f"{name}.ghost_conv.0", sub["ghost1"], st.get("ghost1", {}))
+            if "down" in sub:
+                _pfld_block(out, f"{name}.ghost_conv.1", sub["down"],
+                            st.get("down", {}))
+            ghost(f"{name}.ghost_conv.2", sub["ghost2"], st.get("ghost2", {}))
+    return out
+
+
+def from_jax_yolo(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``YoloV8Face`` variables -> the ultralytics ``model.{i}.*``
+    state_dict (the DFL's fixed arange included), strict-loadable into
+    :class:`calipsync_tpu_torch.nn.yolo.YoloV8Face` (the inverse of
+    calipsync_tpu/nn/yolo.py:import_yolov8_face)."""
+    from calipsync_tpu_torch.nn.yolo import REG_MAX
+
+    p, s = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def cbs(tp, pp, ss):
+        _conv_bn(out, f"{tp}.conv", f"{tp}.bn", pp, ss)
+
+    def block(tp, pp, ss):  # C2f or SPPF: cv1, cv2 and bottlenecks m{i}
+        cbs(f"{tp}.cv1", pp["cv1"], ss["cv1"])
+        cbs(f"{tp}.cv2", pp["cv2"], ss["cv2"])
+        i = 0
+        while f"m{i}" in pp:
+            for cv in ("cv1", "cv2"):
+                cbs(f"{tp}.m.{i}.{cv}", pp[f"m{i}"][cv], ss[f"m{i}"][cv])
+            i += 1
+
+    for name, pp in p.items():
+        ss = s.get(name, {})
+        if name.startswith("l"):
+            tp = f"model.{name[1:]}"
+            (cbs if "conv" in pp else block)(tp, pp, ss)
+            continue
+        kind, i = name[:-1], name[-1]
+        cv = {"box": "cv2", "cls": "cv3", "kpt": "cv4"}[kind]
+        tp = f"model.22.{cv}.{i}"
+        cbs(f"{tp}.0", pp["c0"], ss["c0"])
+        cbs(f"{tp}.1", pp["c1"], ss["c1"])
+        _conv_bias(out, f"{tp}.2", pp["c2"])
+    out["model.22.dfl.conv.weight"] = torch.arange(
+        REG_MAX, dtype=torch.float32).view(1, REG_MAX, 1, 1)
+    return out

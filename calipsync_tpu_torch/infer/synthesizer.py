@@ -32,7 +32,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import cv2
 import numpy as np
@@ -486,14 +486,20 @@ class FrameSynthesizer:
     def iterate_synthesized_frames(
             self, features: np.ndarray, start_frame_idx: int = 0,
             is_generate_sync_frame: bool = True,
-            row_range: Optional[tuple] = None) -> Iterator[Dict]:
+            row_range: Optional[tuple] = None,
+            should_stop: Optional[Callable[[], bool]] = None
+            ) -> Iterator[Dict]:
         """Yield {'frame','index','physical_index'} dicts for each output
         frame driven by the HuBERT features (reference :359-451), in order.
 
         ``row_range=(lo, hi)`` generates frames only for feature rows
         [lo, hi) while the rest of the array gives audio-window context
         (the window spans rows [i-8, i+8)); results equal one call over the
-        full array provided span starts are multiples of ``batch_size``."""
+        full array provided span starts are multiples of ``batch_size``.
+
+        ``should_stop`` is asked before each device batch: once it returns
+        True no further batch starts, the frames of the batches already
+        started still come, and the call ends early."""
         self.last_logical_index = start_frame_idx - 1
         stats = {"load_frame": 0.0, "process_batch": 0.0}
         total = len(features)
@@ -543,6 +549,8 @@ class FrameSynthesizer:
         call_fmt = self._choose_call_format(n_rows)
         try:
             for ri, (start, end) in enumerate(ranges):
+                if should_stop is not None and should_stop():
+                    break
                 head = (ri == 0 and self.first_batch_size
                         and end - start == self.first_batch_size)
                 seq = list(itertools.islice(seq_iter, end - start))

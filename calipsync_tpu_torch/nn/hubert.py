@@ -18,8 +18,9 @@ only when training). Exact (erf) GELU throughout.
 
 The math follows the JAX module: q is scaled by d^-0.5 before q.k, the
 logits and softmax are fp32, masked keys take -1e30 (never -inf, so a
-fully masked row stays finite), and ``num_valid_frames`` zeroes pad
-frames after the projection and masks pad keys.
+fully masked row stays finite), and the valid frames of
+``num_valid_samples`` zero pad frames after the projection and mask pad
+keys.
 
 The convolutions run as products over unfolded windows (:func:`conv1d`),
 not through cuDNN: PyTorch's default flags let cuDNN compute fp32 convs
@@ -158,28 +159,51 @@ class ConvLayer(nn.Module):
             else nn.GroupNorm(dim, dim, eps=cfg.layer_norm_eps) if i == 0
             else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+        """``n_valid`` (B,): the output steps computed from real samples
+        only; the GroupNorm takes its statistics over those, so padding
+        does not change them."""
         x = self.conv(x)
         if isinstance(self.layer_norm, nn.LayerNorm):
             x = self.layer_norm(x.transpose(1, 2)).transpose(1, 2)
         elif self.layer_norm is not None:
-            x = self.layer_norm(x)
+            x = _masked_group_norm(self.layer_norm, x, n_valid)
         return gelu(x)
 
 
+def _masked_group_norm(norm: nn.GroupNorm, x: torch.Tensor,
+                       n_valid: torch.Tensor) -> torch.Tensor:
+    """A GroupNorm of one group a channel over (B, C, T), its mean and
+    (biased) variance over each row's first ``n_valid`` steps (a row
+    without one stays finite)."""
+    t = torch.arange(x.shape[-1], device=x.device)
+    m = (t[None, :] < n_valid[:, None]).to(x.dtype)[:, None]
+    count = m.sum(dim=-1, keepdim=True).clamp(min=1)
+    mean = (x * m).sum(dim=-1, keepdim=True) / count
+    var = ((x - mean).square() * m).sum(dim=-1, keepdim=True) / count
+    y = (x - mean) * torch.rsqrt(var + norm.eps)
+    return y * norm.weight[None, :, None] + norm.bias[None, :, None]
+
+
 class FeatureExtractor(nn.Module):
-    """Raw wav (B, T) -> (B, frames, conv_dim[-1])."""
+    """Raw wav (B, T) and the real samples of each row (B,) ->
+    (B, frames, conv_dim[-1]) and the frames computed from real samples
+    only (B,)."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         self.conv_layers = nn.ModuleList(
             [ConvLayer(cfg, i) for i in range(len(cfg.conv_dim))])
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, num_valid_samples: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         x = wav[:, None, :]
+        n = num_valid_samples.to(wav.device)
         for layer in self.conv_layers:
-            x = layer(x)
-        return x.transpose(1, 2)
+            # the steps whose window holds real samples only
+            n = (n - layer.conv.kernel_size[0]) // layer.conv.stride[0] + 1
+            x = layer(x, n)
+        return x.transpose(1, 2), n.clamp(min=0)
 
 
 class FeatureProjection(nn.Module):
@@ -332,14 +356,15 @@ class Encoder(nn.Module):
 class HubertModel(nn.Module):
     """(B, num_samples) normalized wav -> (B, frames, hidden) last states.
 
-    ``num_valid_frames`` (B,) gives exact variable-length inference on
-    bucket-padded inputs: features at pad frames are zeroed after the
-    projection (the positional conv then sees the zero padding an
-    unpadded run would) and pad keys are masked out of attention, so the
-    real frames match an unpadded forward. Trim the output to
-    ``config.num_frames(true_samples)`` rows. Exact for the 'layer'
-    extractor; the 'group' extractor's GroupNorm takes its statistics over
-    the whole padded length, in the JAX module as here.
+    ``num_valid_samples`` (B,) gives exact variable-length inference on
+    bucket-padded inputs: the 'group' extractor's GroupNorm takes its
+    statistics over the steps computed from real samples (the JAX module
+    takes them over the whole padded length), features at pad frames are
+    zeroed after the projection (the positional conv then sees the zero
+    padding an unpadded run would) and pad keys are masked out of
+    attention, so the real frames match an unpadded forward. Trim the
+    output to ``config.num_frames(true_samples)`` rows. Without it every
+    sample is real.
 
     The compute dtype is the parameters' (``model.to(torch.bfloat16)``);
     the attention logits and softmax stay fp32.
@@ -354,15 +379,20 @@ class HubertModel(nn.Module):
         self.encoder = Encoder(config)
 
     def forward(self, input_values: torch.Tensor,
-                num_valid_frames: Optional[torch.Tensor] = None
+                num_valid_samples: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         dtype = self.masked_spec_embed.dtype
-        x = self.feature_extractor(input_values.to(dtype))
+        masked = num_valid_samples is not None
+        if not masked:
+            num_valid_samples = torch.full((input_values.shape[0],),
+                                           input_values.shape[1],
+                                           device=input_values.device)
+        x, num_valid_frames = self.feature_extractor(
+            input_values.to(dtype), num_valid_samples)
         x = self.feature_projection(x)
         key_mask = None
-        if num_valid_frames is not None:
+        if masked:
             frames = torch.arange(x.shape[1], device=x.device)
-            key_mask = frames[None, :] < num_valid_frames.to(
-                x.device)[:, None]
+            key_mask = frames[None, :] < num_valid_frames[:, None]
             x = x.masked_fill(~key_mask[..., None], 0.0)
         return self.encoder(x, key_mask)

@@ -81,8 +81,12 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         model.load_state_dict(sd.get("state_dict", sd), strict=True)
     state = create_train_state(model.to(device), tc)
 
-    def save(key: int) -> str:
-        path = ckpt.save_checkpoint(save_dir, key, state)
+    # the data order: a fresh start draws the JAX package's stream from
+    # tc.seed; a resumed run goes on from the checkpoint's state
+    rng = np.random.default_rng(tc.seed)
+
+    def save(key: int, data_rng_state: dict) -> str:
+        path = ckpt.save_checkpoint(save_dir, key, state, data_rng_state)
         tmp = os.path.join(save_dir, GENERATOR_FILE + ".tmp")
         torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
                    tmp)
@@ -92,7 +96,7 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
     start_epoch = 0
     if resume and ckpt.latest_step(save_dir) is not None:
         start_epoch = ckpt.latest_step(save_dir)  # keyed by epoch
-        ckpt.restore_checkpoint(save_dir, state, start_epoch)
+        ckpt.restore_checkpoint(save_dir, state, start_epoch, rng)
 
     vgg = (load_vgg19(vgg_path, DTYPES[cfg.model.dtype], device)
            if vgg_path else None)
@@ -114,10 +118,10 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
     feats = torch.from_numpy(ds.audio_feats).to(device)
     put_fn = pin_memory if device.type == "cuda" else None
 
-    rng = np.random.default_rng(tc.seed)
     last_path = ""
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.time()
+        epoch_rng_state = rng.bit_generator.state
         if resident:
             batches = ds.epoch_indices(tc.batch_size, rng, shuffle=True,
                                        drop_last=True)
@@ -147,8 +151,9 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
             if isinstance(batches, Prefetcher):
                 batches.close()
         if preempted:
-            # keyed by this epoch, not the next: resume redoes it
-            last_path = save(epoch)
+            # keyed by this epoch, not the next, with the order it drew:
+            # resume redoes it
+            last_path = save(epoch, epoch_rng_state)
             print(f"preempted during epoch {epoch + 1} after {n_batches} "
                   f"batches; checkpoint saved to {last_path}; run again "
                   f"with resume=True to continue")
@@ -161,7 +166,7 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         periodic = (tc.checkpoint_every
                     and (epoch + 1) % tc.checkpoint_every == 0)
         if final or periodic:
-            last_path = save(epoch + 1)
+            last_path = save(epoch + 1, rng.bit_generator.state)
         if n_batches:
             print(f"epoch {epoch + 1} done in {time.time() - t0:.2f}s avg "
                   f"loss {float(epoch_losses.mean()):.6f}")

@@ -294,6 +294,9 @@ class StreamingVideoManager:
             for _ in synth.iterate_synthesized_frames(feats, 0, True):
                 pass
 
+    def _stopping(self) -> bool:
+        return not (self.player and self.player.running)
+
     def _producer_loop(self) -> None:
         last_frame_index = 0
         current_path: Optional[str] = None
@@ -321,10 +324,13 @@ class StreamingVideoManager:
                     self.ttf_marks["collected"] = time.monotonic()
 
                 feats = np.stack([b.hubert_feature for b in batch])
+                # a stop starts no further device batch of the window, so
+                # stop_playing and close wait for one batch at most
                 for i, info in enumerate(
                         self.synthesizer.iterate_synthesized_frames(
-                            feats, last_frame_index, sync)):
-                    if not (self.player and self.player.running):
+                            feats, last_frame_index, sync,
+                            should_stop=self._stopping)):
+                    if self._stopping():
                         break  # stop_playing mid-window: exit promptly
                     if first:
                         self.ttf_marks["synth_first"] = time.monotonic()
@@ -375,7 +381,8 @@ class StreamingVideoManager:
 
     def close(self) -> None:
         """Stop playing, end the synthesis thread and remove the temporary
-        directory (the silence wav)."""
+        directory (the silence wav). Waits for the producer's device batch
+        in flight, if any, and the thread's end."""
         self.stop_playing()
-        self._thread.stop(timeout=5.0)
+        self._thread.stop()
         shutil.rmtree(self._tmp, ignore_errors=True)

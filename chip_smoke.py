@@ -66,11 +66,30 @@ then, on the card and with no fallback anywhere:
      calipsync_tpu_torch.cli train`` in a subprocess for one epoch and its
      generator.pth served through the kernels.
 
+  8. clones and serves many speakers (run before 7, with seeded weights;
+     the face models compute their convs as fp32 products on the card,
+     nn/product_conv.py): (a) S3FD (VGG16, 480x480 frames at scale 0.25),
+     PFLD-GhostOne (deploy form, 192x192) and YOLOv8n-face (640
+     letterbox), batch 16, on the card against the CPU: the raw heads
+     (and cuDNN's TF32 flag moving nothing), the boxes after NMS, S3FD's
+     top-k path against its full grid, the integer landmarks, each
+     forward's ms; (b) steps 1 and 3 in-process on a 10 s synthetic video
+     with HuBERT-large and bench_assets.write_face_weights (S3FD arranged
+     to fire on every frame): frames/s, the directories whole, step 1's
+     landmarks against a CPU run, then ``python -m calipsync_tpu_torch.cli
+     clone`` in a subprocess (two bf16 epochs) and its stage seconds; (c)
+     MultiStreamSynthesizer, 16 streams of 25-frame windows over the
+     cloned speaker and a synthetic one, bf16 at B=128, bgr and yuv420:
+     aggregate fps, realtime streams, a tick's wall and first frame, every
+     device batch a whole forward, each stream's frames against a
+     single-stream replay of its walk (the batch-invariance bound), one
+     tick profiled.
+
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d) reads the launch counters, set to 0 just before it, just after
-it, and must show whole forwards: 9/17/4 launches in eval mode, 0/0/4 in
-train mode (the blocks run their plain modules; the attention is the
-kernel).
+7c, 7d, 8c) reads the launch counters, set to 0 just before it, just
+after it, and must show whole forwards: 9/17/4 launches in eval mode,
+0/0/4 in train mode (the blocks run their plain modules; the attention
+is the kernel).
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -82,6 +101,7 @@ chiprun_out/chip_smoke_detail.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -780,13 +800,14 @@ def record_calls(synth):
     iterate, dispatch = synth.iterate_synthesized_frames, synth._dispatch
 
     def recording_iterate(features, start_frame_idx=0,
-                          is_generate_sync_frame=True, row_range=None):
+                          is_generate_sync_frame=True, row_range=None,
+                          should_stop=None):
         call = dict(features=np.array(features), start=start_frame_idx,
                     sync=is_generate_sync_frame, phys=[], batches=[],
                     done=False)
         calls.append(call)
         for item in iterate(features, start_frame_idx,
-                            is_generate_sync_frame, row_range):
+                            is_generate_sync_frame, row_range, should_stop):
             call["format"] = synth._active_format  # the call's, by now
             call["phys"].append(item["physical_index"])
             yield item
@@ -1381,6 +1402,487 @@ def training(torch, timer, seed: int, out: dict) -> dict:
     return paths
 
 
+# ------------------------------- preprocessing and multi-stream serving
+
+FACE_BATCH = 16
+# Face models on the card under PyTorch's default flags against the CPU,
+# (atol, atol per rms, rtol) as in kernels/measure.py: their convs run as
+# fp32 products (nn/product_conv.py), so only the order of the sums
+# differs, and cuDNN's TF32 flag must leave them bit-equal.
+FACE_FP32_TOL = (0.0, 1e-4, 1e-4)
+# Integer landmarks, card against the CPU: at most this many pixels apart
+# on any frame (a truncation flips where a coordinate crosses an integer).
+LANDMARK_MAX_PX = 1
+# ... and on at most this share of the values (a fault that shifted every
+# landmark by one pixel would pass the bound in pixels alone)
+LANDMARK_MAX_SHARE = 1e-3
+# Multi-stream serving: 16 streams of 25-frame windows over two speakers,
+# the bf16 generator at B=128; one warm-up tick, then the timed ones.
+MS_STREAMS = 16
+MS_WINDOW = 25
+MS_TICKS = 6
+STEP_FRAMES = 250   # the 10 s synthetic video at 25 fps
+# clip lengths (s) through HuBERT-large in one pass, until one runs out;
+# the 5-minute clip must run
+ONE_PASS_PROBE_S = (60, 120, 180, 240, 300, 360, 480, 540, 600, 720)
+ONE_PASS_MIN_S = 300
+
+
+def read_frames(path: str, n: int = 0) -> list:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while not n or len(frames) < n:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames
+
+
+class _FixedFaces:
+    """A face detector stand-in: one box on the synthetic face, one past
+    the frame's corner (its crop is border-padded)."""
+
+    def detect(self, images):
+        boxes = np.array([[110.0, 190.5, 190.0, 210.0],
+                          [-40.0, 380.0, 150.0, 140.0]], np.float32)
+        return [(boxes, [0, 1]) for _ in images]
+
+
+@contextlib.contextmanager
+def cudnn_tf32_flag(torch, on: bool):
+    """cuDNN's TF32 flag set to ``on`` for the block (this script's
+    measurement only; the port sets no flag)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _card_vs_cpu(torch, name, run, cpu_args, card_args, out):
+    """``run`` (a callable of its args returning tensors) on the CPU and on
+    the card, under the default flags and with cuDNN's TF32 off: the card
+    within FACE_FP32_TOL of the CPU, and the flag moving nothing."""
+    from calipsync_tpu_torch.kernels.measure import max_err, tol_text
+
+    with torch.inference_mode():
+        ref = [t.float() for t in run(*cpu_args)]
+        got = [t.float().cpu() for t in run(*card_args)]
+        with cudnn_tf32_flag(torch, False):
+            off = [t.float().cpu() for t in run(*card_args)]
+    errs = [max_err(g, r, FACE_FP32_TOL) for g, r in zip(got, ref)]
+    moved = max((a - b).abs().max().item() for a, b in zip(got, off))
+    out[name] = dict(max_abs_err=max(e for e, _ in errs), tf32_moves=moved)
+    print(f"{name} card vs CPU: max abs err {out[name]['max_abs_err']:.3g} "
+          f"over {len(ref)} outputs ({tol_text(FACE_FP32_TOL)}); cuDNN's "
+          f"TF32 flag moves them by {moved:.3g}")
+    check(all(ok for _, ok in errs), f"{name}: card and CPU disagree")
+    check(moved == 0, f"{name}: cuDNN's TF32 flag moves the outputs")
+
+
+def face_models_phase(torch, timer, seed: int, out: dict) -> None:
+    """(8a) S3FD (full-width VGG16 on 480x480 frames at scale 0.25), PFLD-
+    GhostOne (width 0.5, 192x192, deploy form) and YOLOv8n-face (640
+    letterbox), batch 16, seeded weights, on the card against the CPU:
+    raw heads, decoded boxes after NMS, the top-k path against the full
+    grid, the integer landmarks (cuDNN's TF32 flag moving nothing, as the
+    convs run as fp32 products), and each forward's ms a batch."""
+    import cv2
+
+    from calipsync_tpu_torch.bench_assets import (make_synthetic_video,
+                                                  mean_face,
+                                                  random_pfld_state,
+                                                  random_state_dict)
+    from calipsync_tpu_torch.nn import pfld, s3fd, yolo
+    from calipsync_tpu_torch.vision.lip_detector import LipDetector
+
+    res = out["faces"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = read_frames(make_synthetic_video(
+            os.path.join(tmp, "faces.mp4"), FACE_BATCH, 480,
+            seed=seed + 20))
+    cpu = torch.device("cpu")
+
+    # S3FD: the face logits shifted 3 down, so a few hundred priors a
+    # frame score above 0.05 and the top-k path serves every frame
+    sd = random_state_dict(s3fd.S3FDBackbone(), seed + 21)
+    for k in range(6):
+        sd[f"conf.{k}.bias"][-1] -= 3.0
+    det = {d: s3fd.S3FDDetector(sd, device=d) for d in ("cpu", "cuda")}
+    scaled = np.stack([det["cpu"]._scaled(f) for f in frames])
+    mean = torch.from_numpy(s3fd.S3FD_MEAN_BGR)
+    x = torch.from_numpy(scaled).float() - mean
+    _card_vs_cpu(torch, "s3fd", lambda m, x: m(x),
+                 (det["cpu"].model, x), (det["cuda"].model, x.cuda()), res)
+    with torch.inference_mode():
+        xd = x.cuda()
+        res["s3fd"]["ms"] = timer.ms(lambda: det["cuda"].model(xd))
+    ref = det["cpu"].detect(frames)
+    got = det["cuda"].detect(frames)
+    full = s3fd.S3FDDetector(sd, device="cuda", topk_device=0).detect(frames)
+    check(not det["cuda"]._topk_sticky_off,
+          "s3fd: the top-k path fell back to the full grid")
+    n_boxes = 0
+    for (rb, ri), (ob, oi), (fb, fi) in zip(ref, got, full):
+        check(oi == ri and ob.shape == rb.shape
+              and np.allclose(ob, rb, rtol=1e-4, atol=1e-2),
+              "s3fd: decoded boxes, card vs CPU")
+        check(oi == fi and np.array_equal(ob, fb),
+              "s3fd: the top-k path and the full grid disagree")
+        n_boxes += len(rb)
+    check(n_boxes > 0, "s3fd: no box to compare")
+    print(f"s3fd: {n_boxes} boxes after NMS on {len(frames)} frames: card "
+          f"= CPU within 0.01 px, top-k = full grid; forward "
+          f"{res['s3fd']['ms']:.3f} ms a batch of {FACE_BATCH} "
+          f"({scaled.shape[1]}x{scaled.shape[2]})")
+    res["s3fd"]["boxes"] = n_boxes
+    del det
+
+    # PFLD, deploy form, on the frames' face crops
+    folded = pfld.fold_mobileone(random_pfld_state(seed + 22))
+    lips = {d: LipDetector(folded, mean_face(seed), _FixedFaces(), device=d)
+            for d in ("cpu", "cuda")}
+    crops = np.stack([cv2.resize(f[190:400, 110:300], (192, 192))
+                      for f in frames])
+    xc = torch.from_numpy(crops).float() / 255.0
+    _card_vs_cpu(torch, "pfld", lambda m, x: [m(x)],
+                 (lips["cpu"].model, xc), (lips["cuda"].model, xc.cuda()),
+                 res)
+    with torch.inference_mode():
+        xcd = xc.cuda()
+        res["pfld"]["ms"] = timer.ms(lambda: lips["cuda"].model(xcd))
+    ref = lips["cpu"].detect_landmarks(frames)
+    moved = {}
+    for mode, flag in (("default_flags", None), ("tf32_off", False)):
+        with (contextlib.nullcontext() if flag is None
+              else cudnn_tf32_flag(torch, flag)):
+            got = lips["cuda"].submit(frames).result()
+        d = np.concatenate([np.abs(a.astype(np.int64) - b).ravel()
+                            for r, g in zip(ref, got) for a, b in zip(r, g)])
+        moved[mode] = (int(d.max()), int((d > 0).sum()), d.size)
+    for lip in lips.values():
+        lip.close()
+    print(f"pfld: integer landmarks, card vs CPU over {len(frames)} frames "
+          f"(2 faces each): default flags max {moved['default_flags'][0]} "
+          f"px on {moved['default_flags'][1]} of "
+          f"{moved['default_flags'][2]} values, TF32 off max "
+          f"{moved['tf32_off'][0]} px on {moved['tf32_off'][1]}; forward "
+          f"{res['pfld']['ms']:.3f} ms a batch of {FACE_BATCH} (limit "
+          f"{LANDMARK_MAX_PX} px on {LANDMARK_MAX_SHARE} of the values)")
+    check(max(m[0] for m in moved.values()) <= LANDMARK_MAX_PX,
+          f"pfld: card and CPU landmarks over {LANDMARK_MAX_PX} px apart")
+    check(all(m[1] <= LANDMARK_MAX_SHARE * m[2] for m in moved.values()),
+          f"pfld: card and CPU landmarks differ on over "
+          f"{LANDMARK_MAX_SHARE} of the values")
+    res["pfld"]["landmarks_moved"] = moved
+
+    # YOLOv8n-face: the class logits shifted so that ~20 anchors an image
+    # score above the threshold (random weights put thousands there, and
+    # NMS over near-equal scores would flip on the last bit)
+    sd = random_state_dict(yolo.YoloV8Face(), seed + 23)
+    canvases = np.stack([yolo.letterbox(np.ascontiguousarray(f[..., ::-1]),
+                                        640)[0] for f in frames])
+    xy = torch.from_numpy(canvases).float() / 255.0
+    net = yolo.YoloV8Face().eval()
+    net.load_state_dict(sd)
+    with torch.inference_mode():
+        logits = torch.cat([o[1].reshape(-1) for o in net(xy[:2])])
+    shift = (torch.quantile(logits, 1 - 20 / (logits.numel() / 2)).item()
+             - np.log(0.1 / 0.9))
+    for i in range(3):
+        sd[f"model.22.cv3.{i}.2.bias"] -= shift
+    kw = dict(conf_threshold=0.1, batch_size=FACE_BATCH)
+    det = {d: yolo.YoloV8FaceDetector(sd, device=d, **kw)
+           for d in ("cpu", "cuda")}
+
+    def heads(m, x):
+        return [t for o in m(x) for t in o]
+
+    _card_vs_cpu(torch, "yolo", heads, (det["cpu"].model, xy),
+                 (det["cuda"].model, xy.cuda()), res)
+    with torch.inference_mode():
+        xyd = xy.cuda()
+        res["yolo"]["ms"] = timer.ms(lambda: det["cuda"].model(xyd))
+    ref = det["cpu"].detect(frames)
+    got = det["cuda"].detect(frames)
+    n_boxes = 0
+    for (rb, ri), (ob, oi) in zip(ref, got):
+        check(oi == ri and ob.shape == rb.shape
+              and np.allclose(ob, rb, rtol=1e-4, atol=1e-2),
+              "yolo: decoded boxes, card vs CPU")
+        n_boxes += len(rb)
+    check(n_boxes > 0, "yolo: no box to compare")
+    print(f"yolo: {n_boxes} boxes after NMS on {len(frames)} frames, card = "
+          f"CPU within 0.01 px; forward {res['yolo']['ms']:.3f} ms a batch "
+          f"of {FACE_BATCH} (640x640)")
+    res["yolo"]["boxes"] = n_boxes
+
+
+def write_hubert_dir(torch, ex, path: str) -> str:
+    """The extractor's HuBERT in the HF layout (config.json and
+    pytorch_model.bin)."""
+    os.makedirs(path)
+    torch.save({k: v.cpu() for k, v in ex.model.state_dict().items()},
+               os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(ex.config), f)
+    return path
+
+
+def _count(path: str, ext: str) -> int:
+    return sum(f.endswith(ext) for f in os.listdir(path))
+
+
+def preprocess_phase(torch, ex, tmp: str, seed: int, out: dict) -> str:
+    """(8b) Step 1 and step 3 in-process on the card over a 10 s synthetic
+    480x480 video, random HuBERT-large and the seeded face weights of
+    bench_assets.write_face_weights (S3FD arranged to fire on every
+    frame); the card's step-1 landmarks against a CPU run of the same
+    weights; then ``python -m calipsync_tpu_torch.cli clone`` in a
+    subprocess. Returns the cloned speaker's infer_data."""
+    from calipsync_tpu_torch.bench_assets import (make_synthetic_video,
+                                                  write_face_weights)
+    from calipsync_tpu_torch.cli import build_lip_detector
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.pipelines.step1_preprocess import \
+        TrainPreprocessor
+    from calipsync_tpu_torch.pipelines.step3_prepare import \
+        InferPreprocessor
+    from calipsync_tpu_torch.vision.geometry import load_landmarks
+
+    res = out["preprocess"] = {}
+    video = make_synthetic_video(os.path.join(tmp, "speaker.mp4"),
+                                 STEP_FRAMES, 480, seed=seed + 30)
+    weights = write_face_weights(os.path.join(tmp, "weights"), seed=seed)
+    hub = write_hubert_dir(torch, ex, os.path.join(tmp, "hubert8"))
+    lip = build_lip_detector(weights)
+    frames = read_frames(video, 64)
+    check(all(r is not None for r in lip.detect_landmarks(frames)),
+          "the face detector did not fire on every frame")
+
+    s1 = os.path.join(tmp, "step1")
+    t0 = time.perf_counter()
+    r1 = TrainPreprocessor(lip, ex).process_video(video, s1)
+    res["step1_s"] = time.perf_counter() - t0
+    res["step1_fps"] = STEP_FRAMES / res["step1_s"]
+    feats = np.load(os.path.join(s1, "aud_hu.npy"))
+    counts = {sub: _count(os.path.join(s1, sub), ext) for sub, ext in (
+        ("full_body_img", ".jpg"), ("landmarks", ".lms"), ("faces", ".jpg"))}
+    check(r1["total_frames"] == STEP_FRAMES
+          and set(counts.values()) == {STEP_FRAMES},
+          f"step 1: {r1['total_frames']} frames, files {counts}")
+    check(os.path.exists(os.path.join(s1, "aud.wav"))
+          and feats.shape == (ex.config.num_frames(
+              16_000 * STEP_FRAMES // 25) // 2, 2, ex.config.hidden_size)
+          and np.isfinite(feats).all(),
+          f"step 1: aud.wav, or aud_hu.npy of {feats.shape}")
+    print(f"step 1 (card): {STEP_FRAMES} frames in {res['step1_s']:.2f} s = "
+          f"{res['step1_fps']:.2f} frames/s; aud_hu {feats.shape}")
+    cpu_lip = build_lip_detector(weights, device="cpu")
+    ref = cpu_lip.detect_landmarks(frames)
+    cpu_lip.close()
+    d = np.concatenate([np.abs(load_landmarks(os.path.join(
+        s1, "landmarks", f"{i}.lms")).astype(np.int64) - r[0]).ravel()
+        for i, r in enumerate(ref)])
+    print(f"step 1: landmarks of {len(frames)} frames, card vs CPU: max "
+          f"{int(d.max())} px on {int((d > 0).sum())} of {d.size} values "
+          f"(limit {LANDMARK_MAX_PX} px on {LANDMARK_MAX_SHARE} of the "
+          f"values, from 8a)")
+    check(int(d.max()) <= LANDMARK_MAX_PX
+          and int((d > 0).sum()) <= LANDMARK_MAX_SHARE * d.size,
+          "step 1: card and CPU landmarks disagree")
+    res["step1_landmarks_max_px"] = int(d.max())
+
+    s3 = os.path.join(tmp, "step3")
+    t0 = time.perf_counter()
+    r3 = InferPreprocessor(lip).process_video(video, s3)
+    res["step3_s"] = time.perf_counter() - t0
+    res["step3_fps"] = STEP_FRAMES / res["step3_s"]
+    infer = os.path.join(s3, "infer_data")
+    counts = {sub: _count(os.path.join(infer, sub), ext) for sub, ext in (
+        ("frames", ".jpg"), ("positions", ".txt"), ("lips_jpg", ".jpg"))}
+    check(r3["processed_frames"] == STEP_FRAMES
+          and set(counts.values()) == {STEP_FRAMES}
+          and os.path.exists(os.path.join(s3, "sample.jpg")),
+          f"step 3: {r3['processed_frames']} frames, files {counts}")
+    print(f"step 3 (card): {STEP_FRAMES} frames in {res['step3_s']:.2f} s = "
+          f"{res['step3_fps']:.2f} frames/s")
+    lip.close()
+
+    cfg = os.path.join(tmp, "clone.json")
+    with open(cfg, "w") as f:
+        json.dump({"train": {"batch_size": 16}}, f)
+    models = os.path.join(tmp, "models")
+    cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "clone",
+           "--video", video, "--out", models, "--weights", weights,
+           "--hubert", hub, "--epochs", "2", "--config", cfg]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"cli clone exited {proc.returncode}")
+    cl = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"cli clone (subprocess, {wall:.1f} s with start-up and loading "
+          f"HuBERT-large): stage seconds {cl['timings']}")
+    Generator().load_state_dict(torch.load(cl["generator"],
+                                           weights_only=True), strict=True)
+    check(_count(os.path.join(cl["infer_data"], "frames"), ".jpg")
+          == STEP_FRAMES and not os.path.exists(os.path.join(
+              models, cl["model_id"], "full_body_img")),
+          "cli clone: the inference assets are not whole")
+    res["clone"] = dict(wall_s=wall, timings=cl["timings"])
+    return cl["infer_data"]
+
+
+def multistream_phase(torch, speakers, seed: int, out: dict) -> dict:
+    """(8c) MultiStreamSynthesizer: 16 streams of 25-frame windows over
+    two speakers (one cloned in 8b), the bf16 generator at B=128, bgr and
+    yuv420: aggregate fps, realtime streams, a tick's wall time and first
+    frame, every device batch a whole forward; each stream's frames of
+    the first two ticks against a single-stream FrameSynthesizer replay
+    of its walk; one tick under torch.profiler."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
+    from calipsync_tpu_torch.kernels.measure import random_generator
+    from calipsync_tpu_torch.serve.multi_stream import MultiStreamSynthesizer
+
+    model = random_generator(torch.bfloat16)
+    rng = np.random.default_rng(seed + 40)
+    ids = [f"s{i}" for i in range(MS_STREAMS)]
+    ticks = [{sid: rng.standard_normal((MS_WINDOW, 2, 1024)).astype(
+        np.float32) for sid in ids} for _ in range(MS_TICKS + 2)]
+    per_tick = -(-MS_STREAMS * MS_WINDOW // BATCH)
+    res = out["multistream"] = {}
+    paths = {}
+    for fmt in ("bgr", "yuv420"):
+        ms = MultiStreamSynthesizer(None, speakers, model=model,
+                                    batch_size=BATCH, transfer_format=fmt)
+        for i, sid in enumerate(ids):
+            ms.add_stream(sid, speaker=i % 2)
+        first = {}
+        for spk in ms._speakers:  # the tick's first composited frame
+            def paste(pred, entry, _inner=spk._paste_back):
+                first.setdefault("t", time.perf_counter())
+                return _inner(pred, entry)
+            spk._paste_back = paste
+        outs = [ms.synthesize_windows(ticks[0])]  # warm-up
+        kernels.reset_launches()
+        walls, firsts = [], []
+        for tick in ticks[1:MS_TICKS + 1]:
+            first.clear()
+            t0 = time.perf_counter()
+            outs.append(ms.synthesize_windows(tick))
+            walls.append(time.perf_counter() - t0)
+            firsts.append(first["t"] - t0)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        expect_forwards(counts, f"multistream {fmt}", MS_TICKS * per_tick)
+        paths[f"multistream_{fmt}"] = counts
+        for o in outs:
+            check(all(len(o[sid]) == MS_WINDOW
+                      and o[sid][0]["frame"].dtype == np.uint8
+                      and o[sid][0]["frame"].shape == (480, 480, 3)
+                      for sid in ids), f"multistream {fmt}: frames")
+        fps = MS_TICKS * MS_STREAMS * MS_WINDOW / sum(walls)
+        prof = device_profile(torch, lambda: ms.synthesize_windows(
+            ticks[-1]), f"multistream tick ({fmt}, {MS_STREAMS} streams)")
+
+        worst, changed, total = 0, 0, 0
+        solos = [FrameSynthesizer(None, d, model=model, batch_size=BATCH,
+                                  transfer_format=fmt) for d in speakers]
+        for i, sid in enumerate(ids):
+            solo = solos[i % 2]
+            solo.sequencer = _ReplaySequence(
+                x["physical_index"] for o in outs[:2] for x in o[sid])
+            for k, o in enumerate(outs[:2]):
+                got = list(solo.iterate_synthesized_frames(
+                    ticks[k][sid], k * MS_WINDOW))
+                check([g["index"] for g in got]
+                      == [x["index"] for x in o[sid]],
+                      f"multistream {fmt}: logical indices")
+                for g, x in zip(got, o[sid]):
+                    dd = np.abs(g["frame"].astype(np.int16)
+                                - x["frame"].astype(np.int16))
+                    worst = max(worst, int(dd.max()))
+                    changed += int((dd > 0).sum())
+                    total += dd.size
+        for s in solos:
+            s.close()
+        ms.close()
+        share = changed / total
+        row = dict(fps=fps, realtime_streams=fps / 25,
+                   tick_ms=float(np.median(walls)) * 1e3,
+                   first_frame_ms=float(np.median(firsts)) * 1e3,
+                   tick_ms_all=[w * 1e3 for w in walls],
+                   replay_max_lsb=worst, replay_share=share,
+                   device_busy_share=prof.get("device_busy_share"),
+                   launches=counts)
+        res[fmt] = row
+        print(f"multistream {fmt}: {MS_STREAMS} streams x {MS_WINDOW} "
+              f"frames, {per_tick} device batches a tick: {fps:.2f} fps = "
+              f"{fps / 25:.2f} realtime streams; tick {row['tick_ms']:.2f} "
+              f"ms (first frame {row['first_frame_ms']:.2f} ms); against "
+              f"single-stream replays max {worst} levels, {share:.3g} of "
+              f"values differ (limits {HEAD_BATCH_MAX_LSB}, "
+              f"{HEAD_BATCH_MAX_SHARE})")
+        check(worst <= HEAD_BATCH_MAX_LSB and share <= HEAD_BATCH_MAX_SHARE,
+              f"multistream {fmt}: frames differ from the single-stream "
+              "path")
+    return paths
+
+
+def one_pass_limit(torch, ex, seed: int, out: dict) -> None:
+    """The longest clip step 1's ``long_audio='one_pass'`` takes: HuBERT-
+    large over the whole clip in one forward, its fp32 scores (16, T, T)
+    a layer, at ONE_PASS_PROBE_S until the card runs out of memory (the
+    default 'auto' chunks beyond 20 s)."""
+    rng = np.random.default_rng(seed + 50)
+    ok = []
+    for seconds in ONE_PASS_PROBE_S:
+        wav = rng.standard_normal(16_000 * seconds).astype(np.float32)
+        try:
+            t0 = time.perf_counter()
+            rows = ex.extract(wav)
+            ok.append((seconds, time.perf_counter() - t0))
+            check(rows.shape[0] == ex.config.num_frames(len(wav)) // 2,
+                  "one_pass rows")
+        except torch.cuda.OutOfMemoryError:
+            break
+        finally:
+            del wav
+            torch.cuda.empty_cache()
+    longest = ok[-1][0] if ok else 0
+    print(f"one_pass HuBERT-large: clips of {[s for s, _ in ok]} s ran "
+          f"({', '.join(f'{t:.2f}' for _, t in ok)} s each); "
+          + (f"{ONE_PASS_PROBE_S[len(ok)]} s ran out of memory"
+             if len(ok) < len(ONE_PASS_PROBE_S) else "no probe ran out"))
+    out["preprocess"]["one_pass_longest_s"] = longest
+    out["preprocess"]["one_pass_s"] = ok
+    check(longest >= ONE_PASS_MIN_S,
+          f"one_pass: a {ONE_PASS_MIN_S} s clip did not run")
+
+
+def preprocess_and_serve(torch, ex, timer, seed: int, out: dict) -> dict:
+    """Phases (8a)-(8c); returns the launch counts of the multi-stream
+    paths."""
+    from calipsync_tpu_torch.bench_assets import make_synthetic_speaker
+
+    face_models_phase(torch, timer, seed, out)
+    with tempfile.TemporaryDirectory() as tmp:
+        cloned = preprocess_phase(torch, ex, tmp, seed, out)
+        one_pass_limit(torch, ex, seed, out)
+        other = make_synthetic_speaker(os.path.join(tmp, "speaker2"),
+                                       n_frames=40, res=480)
+        return multistream_phase(torch, [other, cloned], seed, out)
+
+
 def print_kernel_resources(_build):
     """Each compiled kernel's registers, static shared memory, spills and
     any performance warning (from ptxas -v in build/nvcc.log), and the
@@ -1444,9 +1946,10 @@ def print_kernel_resources(_build):
               f"{out[4]} B, {out[5]} blocks/SM")
 
 
-def audio_to_video(torch, seed: int, metrics: dict) -> dict:
+def audio_to_video(torch, seed: int, metrics: dict):
     """Phases (a)-(d); returns the launch counts of each path that runs
-    the generator, each read from counters set to 0 just before it."""
+    the generator, each read from counters set to 0 just before it, and
+    the HuBERT-large extractor."""
     from calipsync_tpu_torch.audio.io import save_wav
     from calipsync_tpu_torch.bench_assets import make_synthetic_speaker
     from calipsync_tpu_torch.kernels.measure import random_generator
@@ -1463,7 +1966,7 @@ def audio_to_video(torch, seed: int, metrics: dict) -> dict:
         paths["streaming"] = streaming_phase(torch, ex, model, data, tmp,
                                              seed, metrics)
         paths["cli_infer"] = cli_phase(torch, ex, data, tmp, seed, metrics)
-    return paths
+    return paths, ex
 
 
 def main() -> int:
@@ -1509,7 +2012,11 @@ def main() -> int:
     paths = {"serve": counts}
     # the audio phases run under PyTorch's default flags, as the CLI does
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    paths.update(audio_to_video(torch, args.seed, metrics))
+    audio_paths, ex = audio_to_video(torch, args.seed, metrics)
+    paths.update(audio_paths)
+    paths.update(preprocess_and_serve(torch, ex, timer, args.seed, metrics))
+    del ex  # off the card before training measures its peak memory
+    torch.cuda.empty_cache()
     paths.update(training(torch, timer, args.seed, metrics))
 
     kernels_line = []

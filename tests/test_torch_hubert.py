@@ -75,7 +75,7 @@ def test_hubert_matches_jax(feat_norm, stable):
 
 
 def test_padded_masked_forward_is_exact():
-    """Bucket padding with num_valid_frames: the valid rows equal an
+    """Bucket padding with num_valid_samples: the valid rows equal an
     unpadded forward's (and the JAX masked forward's) up to the rounding
     of products of another length (~1e-6 here; a pad frame that leaked in
     would move them by O(1)); a row with no valid frame (every key at
@@ -91,7 +91,7 @@ def test_padded_masked_forward_is_exact():
     with torch.inference_mode():
         exact = model(torch.from_numpy(wav[None]))[0].numpy()
         masked = model(torch.from_numpy(padded),
-                       num_valid_frames=torch.from_numpy(n_valid)).numpy()
+                       num_valid_samples=torch.tensor([len(wav), 0])).numpy()
     np.testing.assert_allclose(masked[0, :n], exact, rtol=RTOL, atol=ATOL)
     assert np.isfinite(masked[1]).all()
     ref = np.asarray(jax.jit(jax_hubert.HubertModel(jcfg).apply)(
@@ -166,6 +166,41 @@ def test_extractor_matches_jax(n_samples):
         np.testing.assert_array_equal(
             ours.extract_auto(wav),
             one if n_samples <= ours.chunk_len else batch)
+
+
+@pytest.mark.parametrize("feat_norm,stable", VARIANTS)
+def test_bucket_padding_leaves_the_features_unchanged(feat_norm, stable):
+    """A row zero-padded to its bucket gives the features of the unpadded
+    row: for the 'group' extractor its GroupNorm takes its statistics over
+    the real samples only (the JAX module takes them over the padding too,
+    which moves every feature); the 'layer' extractor equals the JAX
+    masked forward."""
+    jcfg, cfg, variables, model = _pair(feat_norm, stable)
+    n_samples, bucket = 3730, 4000
+    wav = normalize_wav(np.random.default_rng(8).standard_normal(
+        n_samples).astype(np.float32))
+    n = cfg.num_frames(n_samples)
+    padded = torch.zeros(1, bucket)
+    padded[0, :n_samples] = wav
+    with torch.no_grad():
+        ref = model(wav[None])[0]
+        out = model(padded, num_valid_samples=torch.tensor([n_samples]))[0, :n]
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+    jax_padded = np.asarray(jax.jit(jax_hubert.HubertModel(jcfg).apply)(
+        variables, jnp.asarray(padded.numpy()),
+        num_valid_frames=jnp.asarray([n], jnp.int32)))[0, :n]
+    if feat_norm == "layer":
+        np.testing.assert_allclose(out.numpy(), jax_padded, rtol=RTOL,
+                                   atol=ATOL)
+    else:  # the padding reaches the JAX module's features
+        assert np.abs(jax_padded - ref.numpy()).max() > 100 * ATOL
+    ours = HubertFeatureExtractor(None, model=model, device="cpu",
+                                  bucket_samples=bucket)
+    feats = ours.extract(wav.numpy())
+    t = n - n % 2
+    torch.testing.assert_close(torch.from_numpy(feats),
+                               ref[:t].reshape(-1, 2, cfg.hidden_size),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_hf_key_layout_matches_the_manifest():

@@ -15,7 +15,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "calipsync_tpu",
              "transformers"}
-LAZY_ONLY = {"safetensors"}
+LAZY_ONLY = {"safetensors", "ultralytics"}
 SOURCES = sorted((REPO / "calipsync_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 

@@ -44,6 +44,7 @@ from calipsync_tpu_torch.kernels.measure import grad_agreement
 from calipsync_tpu_torch.nn.blocks import BatchNorm1d, BatchNorm2d
 from calipsync_tpu_torch.nn.unet import Generator
 from calipsync_tpu_torch.nn.vgg import VGG19Features, vgg19_state_dict
+from calipsync_tpu_torch.pipelines import step2_train
 from calipsync_tpu_torch.pipelines.step2_train import (GENERATOR_FILE,
                                                        train_digital_model)
 from calipsync_tpu_torch.train import loss as port_loss
@@ -226,15 +227,18 @@ def _batch(seed, b=2, n_rows=12):
     return batch, feats
 
 
-def _jax_stepper(n_blocks, batch_size, vgg_variables=None):
+def _jax_stepper(n_blocks, batch_size, vgg_variables=None, dtype=None):
     """JAX make_train_step on a 1-device CPU mesh, compiled on the first
     call: fn(variables, batch, feats) -> (metrics, the new state's params,
     batch_stats, and gradients from Adam's first moment, mu = (1 - b1) g
-    after the first update), numpy trees."""
+    after the first update), numpy trees. ``dtype`` (e.g. jnp.float64,
+    under jax.enable_x64) overrides the config's compute dtype."""
     mesh = make_mesh(data=1)
     tcfg = jax_config.TrainConfig(batch_size=batch_size)
-    model = jax_trainer.build_model(jax_config.ModelConfig(
-        n_blocks=n_blocks), axis_name="data")
+    model = (jax_unet.Generator(n_blocks=n_blocks, dtype=dtype,
+                                axis_name="data") if dtype is not None
+             else jax_trainer.build_model(jax_config.ModelConfig(
+                 n_blocks=n_blocks), axis_name="data"))
     tx = jax_trainer.adam(tcfg)
     step = jax_trainer.make_train_step(
         model, tx, mesh, tcfg, use_perceptual=vgg_variables is not None)
@@ -674,6 +678,11 @@ def test_preemption_guard_latches_and_restores_handlers():
     assert signal.getsignal(signal.SIGTERM) is before
 
 
+# The whole step in float64, JAX against the port: 5x the floor of 6e-4 of
+# a leaf's norm that JAX's fp32 pins leave (ROADMAP.md C.4).
+STEP_FP64_LEAF_TOL = 3e-3
+
+
 def _train_cfg(**train):
     return config.PipelineConfig(
         model=config.ModelConfig(n_blocks=1),
@@ -760,6 +769,103 @@ def test_preempted_epoch_is_redone(trained, step1_dir, tmp_path,
                                loss_history=losses, device="cpu")
     assert path.endswith("step_2.pt") and len(losses) == 3
     assert torch.load(path, weights_only=True)["step"] == 7
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_resumed_run_sees_the_batches_of_an_uninterrupted_run(
+        step1_dir, tmp_path, monkeypatch, resident):
+    """The data order crosses a checkpoint: two epochs in one run, one
+    epoch then a resumed second, and a second epoch preempted after its
+    first batch then redone, all draw the same batches. (A resumed run
+    once drew the first epoch's order again.)"""
+    seen = []
+
+    def recording_step(*_, **__):
+        def step(state, *args):
+            arrays = (args[1:4] if resident
+                      else [args[0][k] for k in sorted(args[0])])
+            seen.append(b"".join(np.asarray(a).tobytes() for a in arrays))
+            state.step += 1
+            return {"loss": torch.zeros(())}
+        return step
+
+    monkeypatch.setattr(step2_train, "make_resident_train_step",
+                        recording_step)
+    monkeypatch.setattr(step2_train, "make_train_step", recording_step)
+
+    def run(name, epochs, **kw):
+        cfg = _train_cfg(resident_data=resident)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, epochs=epochs))
+        return train_digital_model(step1_dir, str(tmp_path / name), cfg=cfg,
+                                   device="cpu", **kw)
+
+    run("whole", 2)
+    whole, per_epoch = list(seen), len(seen) // 2
+    assert per_epoch == 3 and whole[:3] != whole[3:]
+    seen.clear()
+    run("resumed", 1)
+    run("resumed", 2, resume=True)
+    assert seen == whole
+
+    class _TripsAfter:  # preempts at the first batch of the second epoch
+        polls = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+        @property
+        def triggered(self):
+            _TripsAfter.polls += 1
+            return _TripsAfter.polls > per_epoch
+
+    seen.clear()
+    with monkeypatch.context() as m:
+        m.setattr(ckpt, "PreemptionGuard", _TripsAfter)
+        run("preempted", 2)
+    run("preempted", 2, resume=True)
+    assert seen[:per_epoch + 1] == whole[:per_epoch + 1]
+    assert seen[per_epoch + 1:] == whole[per_epoch:]
+
+
+@pytest.mark.slow
+def test_whole_train_step_in_float64_matches_jax():
+    """The whole JAX train step (make_train_step on a 1-device mesh,
+    jax.enable_x64, float64 weights and features) against the port's step
+    in float64, every gradient leaf, at n_blocks=1, B=2, L1 only. JAX pins
+    the attention's scores and the output's sigmoid to fp32 even here, so
+    the two stay ~6e-4 of a leaf's norm apart at best (ROADMAP.md C.4):
+    STEP_FP64_LEAF_TOL is 5x that floor. Minutes on the CPU."""
+    variables = random_jax_generator(n_blocks=1, seed=21)
+    batch, feats = _batch(22)
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                     variables)
+        _, _, ref_stats, grads = _jax_stepper(1, 2, dtype=jnp.float64)(
+            v64, batch, feats.astype(np.float64))
+        assert all(g.dtype == np.float64
+                   for g in jax.tree_util.tree_leaves(grads))
+    state, _ = _port_step(variables, batch, feats.astype(np.float64), 1,
+                          dtype=torch.float64)
+    ref = _exported(grads, ref_stats, 1)
+    worst, n = 0.0, 0
+    for name, p in state.model.named_parameters():
+        if name in FOLDED_BIASES:
+            continue
+        g = torch.from_numpy(np.array(ref[name], np.float64))
+        norm = g.norm().item()
+        if norm < 1e-7:  # zero exactly: a bias ahead of a train-mode BN
+            assert p.grad.abs().max().item() < 1e-5, name
+            continue
+        err = (p.grad - g).norm().item() / norm
+        worst, n = max(worst, err), n + 1
+        assert err <= STEP_FP64_LEAF_TOL, f"{name}: {err:.3g} of its norm"
+    print(f"whole step fp64: worst leaf {worst:.3g} of its norm ({n} "
+          f"leaves)")
+    assert n > 0.9 * sum(1 for _ in state.model.parameters())
 
 
 @pytest.mark.parametrize("train,n_losses", [
