@@ -224,3 +224,31 @@ def write_face_weights(weights_dir: str, seed: int = 0,
         torch.save(sd, os.path.join(weights_dir,
                                     "yolov8n_face_state_dict.pth"))
     return weights_dir
+
+
+def write_eval_weights(weights_dir: str, seed: int = 0,
+                       mode: str = "hubert") -> dict:
+    """Seeded evaluation networks in the reference layouts, for runs where
+    no trained weights exist: ``syncnet.pth`` (``SyncNet_color``'s keys),
+    and for LPIPS ``vgg16.pth`` / ``alexnet.pth`` (torchvision
+    ``features.N.*``) with ``lpips_vgg.pth`` / ``lpips_alex.pth`` (the
+    lpips package's ``lin{k}.model.1.weight``, non-negative as in the
+    released heads). Returns {name: path}."""
+    import torch
+
+    from calipsync_tpu_torch.nn.lpips import LPIPS
+    from calipsync_tpu_torch.nn.syncnet import SyncNet
+
+    os.makedirs(weights_dir, exist_ok=True)
+    paths = {"syncnet": os.path.join(weights_dir, "syncnet.pth")}
+    torch.save(random_state_dict(SyncNet(mode=mode), seed), paths["syncnet"])
+    for net, trunk_file in (("vgg", "vgg16.pth"), ("alex", "alexnet.pth")):
+        sd = random_state_dict(LPIPS(net), seed + 1)
+        trunk = {k[len("trunk."):]: v for k, v in sd.items()
+                 if k.startswith("trunk.")}
+        heads = {k: v.abs() for k, v in sd.items() if k.startswith("lin")}
+        paths[f"{net}_trunk"] = os.path.join(weights_dir, trunk_file)
+        paths[f"{net}_heads"] = os.path.join(weights_dir, f"lpips_{net}.pth")
+        torch.save(trunk, paths[f"{net}_trunk"])
+        torch.save(heads, paths[f"{net}_heads"])
+    return paths

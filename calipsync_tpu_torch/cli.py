@@ -1,5 +1,6 @@
 """Command-line interface of the port (counterpart of the step1, step3,
-clone, featurize, train, infer and serve commands of calipsync_tpu/cli.py):
+clone, featurize, train, infer, serve, syncnet-train, eval and sync-score
+commands of calipsync_tpu/cli.py):
 
     python -m calipsync_tpu_torch.cli step1 --video v.mp4 --out data/ \\
         --weights face_weights/ --hubert hubert_dir/ [--audio v.wav]
@@ -14,7 +15,14 @@ clone, featurize, train, infer and serve commands of calipsync_tpu/cli.py):
     python -m calipsync_tpu_torch.cli infer --assets assets/infer_data \\
         --ckpt generator.pth --hubert hubert_dir/ --audio a.wav --out o.mp4
     python -m calipsync_tpu_torch.cli serve --assets assets/infer_data \\
-        --ckpt generator.pth --hubert hubert_dir/ --player null|file
+        --ckpt generator.pth --hubert hubert_dir/ \\
+        --player window|rtmp|file|virtualcam|null [--rtmp-url URL]
+    python -m calipsync_tpu_torch.cli syncnet-train --data step1_dir/ \\
+        --save syncnet_run/ [--mode hubert|wenet] [--base syncnet.pth]
+    python -m calipsync_tpu_torch.cli eval --a a.mp4 --b b.mp4 \\
+        [--lpips lpips_vgg.pth --lpips-trunk vgg16.pth --lpips-net vgg]
+    python -m calipsync_tpu_torch.cli sync-score --lips-dir lips_jpg/ \\
+        --features aud_hu.npy [--syncnet syncnet.pth]
 
 ``--weights`` is the face-model directory in the reference's layout:
 ``mean_face.txt``, ``checkpoint_epoch_335.pth.tar`` (PFLD) and
@@ -230,25 +238,47 @@ def cmd_infer(args):
     print(json.dumps(out))
 
 
+def build_player(args, fps: int):
+    """The ``--player`` of ``serve``, clocked at the stream manager's
+    24 kHz output."""
+    from calipsync_tpu_torch.serve.players import (FilePlayer, NullPlayer,
+                                                   RTMPPlayer,
+                                                   VirtualCamPlayer,
+                                                   WindowPlayer)
+
+    kw = dict(fps=fps, sample_rate=24_000)
+    if args.player == "window":
+        return WindowPlayer(**kw)
+    if args.player == "rtmp":
+        if not args.rtmp_url:
+            raise SystemExit("--player rtmp needs --rtmp-url")
+        return RTMPPlayer(args.rtmp_url, args.width, args.height, **kw)
+    if args.player == "file":
+        return FilePlayer(args.out or "stream.mp4", realtime=True, **kw)
+    if args.player == "virtualcam":
+        return VirtualCamPlayer(device=args.cam_device, width=args.width,
+                                height=args.height, **kw)
+    return NullPlayer(**kw)
+
+
 def cmd_serve(args):
     """Real-time streaming: watches a directory for audio files.
 
     Drop ``<name>.wav`` into --watch to queue it (prefix ``danmu_`` for
     the high-priority queue); the avatar idles on silence otherwise.
-    Stops on Ctrl-C; the file player then writes its mp4.
+    Stops on Ctrl-C (SIGINT); the file player then writes its mp4, and the
+    last line is a JSON summary (frames, producer errors, kernel
+    launches).
     """
-    from calipsync_tpu_torch.serve.players import FilePlayer, NullPlayer
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.serve.players import FilePlayer
     from calipsync_tpu_torch.serve.stream_manager import \
         StreamingVideoManager
 
     cfg = _load_cfg(args)
+    player = build_player(args, cfg.infer.fps)
     synth = _synthesizer(args, cfg, cfg.infer.first_window_batch)
-    sample_rate = 24_000  # manager output rate; pegs the player clock
-    kw = dict(fps=cfg.infer.fps, sample_rate=sample_rate)
-    if args.player == "file":
-        player = FilePlayer(args.out or "stream.mp4", realtime=True, **kw)
-    else:
-        player = NullPlayer(**kw)
+    sample_rate = player.SAMPLE_RATE
     mgr = StreamingVideoManager(
         synth, build_hubert(args.hubert, args.device), player,
         buffer_threshold=int(cfg.infer.fps * cfg.infer.buffer_threshold_s),
@@ -256,6 +286,7 @@ def cmd_serve(args):
         is_interrupt=args.interrupt)
     print("warming up...", flush=True)
     mgr.warmup()
+    kernels.reset_launches()
     mgr.start_playing()
     print(f"serving; drop .wav files into {args.watch} (danmu_* = "
           "priority)", flush=True)
@@ -273,26 +304,178 @@ def cmd_serve(args):
                 print(f"queued {f} -> {queue} ({n} frames)", flush=True)
             time.sleep(0.2)
     except KeyboardInterrupt:
-        print(f"stopping after {mgr.frames_uploaded} frames, "
-              f"{mgr.producer_errors} producer errors", flush=True)
+        print("stopping", flush=True)
     finally:
         mgr.close()
         synth.close()
         if isinstance(player, FilePlayer) and player.frames:
             print(f"wrote {player.finalize()}", flush=True)
+    print(json.dumps({"frames_uploaded": mgr.frames_uploaded,
+                      "producer_errors": mgr.producer_errors,
+                      "kernel_launches": kernels.launch_counts(),
+                      "device": str(synth.device)}), flush=True)
+
+
+def cmd_syncnet_train(args):
+    """Train the SyncNet evaluator on a step-1 directory; the last line is
+    a JSON summary (losses, the first step's seconds, samples/s after it,
+    and on the card the peak memory)."""
+    import torch
+
+    from calipsync_tpu_torch.core.device import resolve_device
+    from calipsync_tpu_torch.train.syncnet_trainer import (SyncNetDataset,
+                                                           train_sync_net)
+
+    dev = resolve_device(args.device)
+    per_epoch = len(SyncNetDataset(args.data, args.mode))
+    last = None
+    steps = 0
+    t0 = time.perf_counter()
+    for (batch_idx, total, epoch, epochs, loss, best,
+         elapsed) in train_sync_net(
+            args.save, args.data, mode=args.mode,
+            batch_size=args.batch_size, lr=args.lr, epochs=args.epochs,
+            base_last_model=args.base, seed=args.seed, device=dev):
+        if steps == 0:
+            t_first = time.perf_counter()
+        steps += 1
+        last = (epoch, epochs, loss, best)
+        if args.log_every and batch_idx % args.log_every == 0:
+            print(f"epoch {epoch + 1}/{epochs} batch {batch_idx}/{total} "
+                  f"loss {loss:.4f} best {best:.4f} ({elapsed:.0f}s)",
+                  flush=True)
+    if last is None:
+        raise SystemExit("empty dataset")
+    t_end = time.perf_counter()
+    out = {"save_dir": args.save, "epochs": last[1],
+           "final_loss": round(float(last[2]), 6),
+           "best_loss": round(float(last[3]), 6), "steps": steps,
+           "first_step_s": round(t_first - t0, 3),
+           "samples_per_s": (round(
+               (last[1] * per_epoch - min(args.batch_size, per_epoch))
+               / (t_end - t_first), 2) if steps > 1 else None)}
+    if dev.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(json.dumps(out))
+
+
+def _read_frames(path: str, limit: int, size=None) -> list:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while len(frames) < limit:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f if size is None else cv2.resize(f, size))
+    cap.release()
+    return frames
+
+
+def cmd_sync_score(args):
+    """LSE-style lip-sync scoring of a generated video against its audio
+    features (SyncNet offset scan, eval.sync_metrics)."""
+    import glob
+
+    import cv2
+    import numpy as np
+
+    from calipsync_tpu_torch.eval import sync_metrics
+    from calipsync_tpu_torch.nn.syncnet import load_syncnet, random_syncnet
+
+    if not args.lips_dir and not args.video:
+        raise SystemExit("pass --video or --lips-dir")
+    if args.lips_dir:
+        paths = sorted(glob.glob(os.path.join(args.lips_dir, "*.jpg")))
+        if args.max_frames:
+            paths = paths[:args.max_frames]
+        if not paths:
+            raise SystemExit(f"no *.jpg crops in {args.lips_dir}")
+        imgs = []
+        for p in paths:
+            img = cv2.imread(p)
+            if img is None:
+                raise SystemExit(f"unreadable image: {p}")
+            imgs.append(cv2.resize(img, (160, 160)))
+        crops = np.stack(imgs)
+    else:
+        frames = _read_frames(args.video, args.max_frames, (160, 160))
+        if not frames:
+            raise SystemExit(f"no frames in {args.video}")
+        crops = np.stack(frames)
+
+    feats = np.load(args.features)
+    if args.syncnet:
+        model = load_syncnet(args.syncnet, mode=args.mode,
+                             device=args.device)
+    else:
+        model = random_syncnet(mode=args.mode, device=args.device)
+    report = sync_metrics(model, crops, feats, mode=args.mode,
+                          max_offset=args.max_offset)
+    report["weights"] = args.syncnet or "random-init (relative scores only)"
+    print(json.dumps(report, indent=2))
+
+
+def cmd_eval(args):
+    """Frame-wise PSNR (and LPIPS with --lpips) between two videos."""
+    import numpy as np
+
+    from calipsync_tpu_torch.eval import batch_psnr
+
+    fa = _read_frames(args.a, args.max_frames)
+    fb = _read_frames(args.b, args.max_frames)
+    n = min(len(fa), len(fb))
+    if n == 0:
+        raise SystemExit("no comparable frames")
+    a = np.stack(fa[:n])
+    b = np.stack(fb[:n])
+    if a.shape != b.shape:
+        raise SystemExit(f"shape mismatch: {a.shape} vs {b.shape}")
+    scores = batch_psnr(a, b)
+
+    def fin(x):  # bit-identical frames -> infinite PSNR -> null
+        return round(float(x), 3) if np.isfinite(x) else None
+
+    out = {"n_frames": n,
+           "psnr_db_mean": fin(np.mean(scores)),
+           "psnr_db_min": fin(np.min(scores))}
+    if args.lpips:
+        if not args.lpips_trunk:
+            raise SystemExit("--lpips also needs --lpips-trunk "
+                             "(torchvision vgg16/alexnet checkpoint)")
+        from calipsync_tpu_torch.core.weights import load_torch_state_dict
+        from calipsync_tpu_torch.eval import lpips_distance
+        from calipsync_tpu_torch.nn.lpips import load_lpips
+
+        model = load_lpips(load_torch_state_dict(args.lpips_trunk),
+                           load_torch_state_dict(args.lpips),
+                           net=args.lpips_net, device=args.device)
+        # LPIPS weights are RGB-trained; cv2 frames are BGR
+        ra, rb = a[..., ::-1], b[..., ::-1]
+        chunk = 32
+        d = np.concatenate([lpips_distance(model, ra[s:s + chunk],
+                                           rb[s:s + chunk])
+                            for s in range(0, n, chunk)])
+        out["lpips_mean"] = round(float(np.mean(d)), 5)
+        out["lpips_max"] = round(float(np.max(d)), 5)
+    print(json.dumps(out))
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="calipsync_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def device(sp):
+        sp.add_argument("--device", default=None,
+                        help="'cuda' (default; fails without a GPU) or "
+                             "'cpu'")
+
     def common(sp):
         sp.add_argument("--hubert", required=True,
                         help="HF hubert checkpoint dir")
         sp.add_argument("--config", default=None, help="JSON config file")
-        sp.add_argument("--device", default=None,
-                        help="'cuda' (default; fails without a GPU) or "
-                             "'cpu'")
+        device(sp)
 
     def face_weights(sp):
         sp.add_argument("--weights", required=True,
@@ -318,8 +501,7 @@ def main(argv=None):
                          "in between (PFLD still runs on every frame)")
     face_weights(sp)
     sp.add_argument("--config", default=None, help="JSON config file")
-    sp.add_argument("--device", default=None,
-                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    device(sp)
     sp.set_defaults(fn=cmd_step3)
 
     sp = sub.add_parser("clone", help="video -> fine-tuned speaker (step 1, "
@@ -373,8 +555,7 @@ def main(argv=None):
                          "JAX package's `clone`; float32 on request")
     sp.add_argument("--epochs", type=int, default=None)
     sp.add_argument("--config", default=None, help="JSON config file")
-    sp.add_argument("--device", default=None,
-                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    device(sp)
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("infer", help="audio -> lip-synced video")
@@ -395,12 +576,72 @@ def main(argv=None):
     sp.add_argument("--ckpt", required=True, help="generator .pth")
     sp.add_argument("--watch", default="serve_queue",
                     help="directory watched for .wav files")
-    sp.add_argument("--player", default="null", choices=["null", "file"])
+    sp.add_argument("--player", default="window",
+                    choices=["window", "rtmp", "file", "virtualcam",
+                             "null"])
+    sp.add_argument("--rtmp-url", default=None,
+                    help="rtmp://host[:port]/app/stream for --player rtmp")
+    sp.add_argument("--cam-device", default="/dev/video0",
+                    help="v4l2loopback device for --player virtualcam")
     sp.add_argument("--out", default=None, help="file player output")
+    sp.add_argument("--width", type=int, default=1080,
+                    help="rtmp/virtualcam output width")
+    sp.add_argument("--height", type=int, default=1920,
+                    help="rtmp/virtualcam output height")
     sp.add_argument("--interrupt", action="store_true",
                     help="priority audio preempts mid-file")
     common(sp)
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("syncnet-train",
+                        help="train the SyncNet evaluator on a step-1 "
+                             "directory (reference module/syncnet.py main)")
+    sp.add_argument("--data", required=True, help="step-1 directory")
+    sp.add_argument("--save", required=True, help="checkpoint directory")
+    sp.add_argument("--mode", default="hubert", choices=["hubert", "wenet"])
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--epochs", type=int, default=40)
+    sp.add_argument("--base", default=None,
+                    help="warm start: a port checkpoint directory or a "
+                         "SyncNet .pth in the reference layout")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--log-every", type=int, default=10)
+    device(sp)
+    sp.set_defaults(fn=cmd_syncnet_train)
+
+    sp = sub.add_parser("eval",
+                        help="frame-wise PSNR/LPIPS between two videos")
+    sp.add_argument("--a", required=True)
+    sp.add_argument("--b", required=True)
+    sp.add_argument("--max-frames", type=int, default=250)
+    sp.add_argument("--lpips", default=None,
+                    help="lpips heads checkpoint (.pth) to add LPIPS")
+    sp.add_argument("--lpips-trunk", default=None,
+                    help="torchvision trunk checkpoint for LPIPS")
+    sp.add_argument("--lpips-net", default="vgg", choices=["vgg", "alex"])
+    device(sp)
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser(
+        "sync-score",
+        help="LSE-style lip-sync score of a generated video vs its audio "
+             "features (SyncNet offset scan)")
+    sp.add_argument("--video", default=None,
+                    help="generated mp4 (frames resized to 160x160)")
+    sp.add_argument("--lips-dir", default=None,
+                    help="directory of pre-cropped mouth jpgs (step 3's "
+                         "infer_data/lips_jpg) - preferred")
+    sp.add_argument("--features", required=True,
+                    help="aud_hu.npy HuBERT rows for the same audio")
+    sp.add_argument("--syncnet", default=None,
+                    help="trained SyncNet .pth (absent = random init, "
+                         "relative scores only)")
+    sp.add_argument("--mode", default="hubert", choices=["hubert", "wenet"])
+    sp.add_argument("--max-offset", type=int, default=15)
+    sp.add_argument("--max-frames", type=int, default=500)
+    device(sp)
+    sp.set_defaults(fn=cmd_sync_score)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,6 +1,9 @@
-"""Generator, HuBERT and VGG19 weights carried across from the JAX package
-(HuBERT: :func:`from_jax_hubert` and :func:`random_jax_hubert`; VGG19:
-:func:`from_jax_vgg` and :func:`random_jax_vgg`, at the end of this file).
+"""Generator, HuBERT, VGG19, face-model, SyncNet and LPIPS weights carried
+across from the JAX package (HuBERT: :func:`from_jax_hubert` and
+:func:`random_jax_hubert`; VGG19: :func:`from_jax_vgg` and
+:func:`random_jax_vgg`; then the face models; SyncNet and LPIPS:
+:func:`from_jax_syncnet` and :func:`from_jax_lpips`, at the end of this
+file).
 
 :func:`from_jax_generator` takes the JAX ``{'params', 'batch_stats'}`` tree
 (nested dicts of numpy arrays) and returns the port's state_dict, which has
@@ -554,3 +557,43 @@ def from_jax_yolo(variables: Mapping) -> Dict[str, torch.Tensor]:
     out["model.22.dfl.conv.weight"] = torch.arange(
         REG_MAX, dtype=torch.float32).view(1, REG_MAX, 1, 1)
     return out
+
+
+# ---------------------------------------------------- evaluation networks
+
+def from_jax_syncnet(variables: Mapping, mode: str = "hubert"
+                     ) -> Dict[str, torch.Tensor]:
+    """flax ``SyncNet`` variables ({'params', 'batch_stats'}, the layout of
+    calipsync_tpu/nn/syncnet.py) -> the reference ``SyncNet_color``
+    state_dict (``face_encoder.{i}.conv_block.{0,1}.*``), strict-loadable
+    into :class:`calipsync_tpu_torch.nn.syncnet.SyncNet`; the inverse of
+    the JAX package's ``import_syncnet``. The conv biases stay ahead of the
+    BN, as in the reference."""
+    from calipsync_tpu_torch.nn.syncnet import _FACE_PLAN, _audio_plan
+
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, ours, plan in (("face_encoder", "face", _FACE_PLAN),
+                               ("audio_encoder", "audio", _audio_plan(mode))):
+        for i in range(len(plan)):
+            tp = f"{prefix}.{i}.conv_block"
+            p, s = params[f"{ours}{i}"], stats[f"{ours}{i}"]
+            _conv_bias(out, f"{tp}.0", p["conv"])
+            _bn(out, f"{tp}.1", p["bn"], s["bn"])
+    return out
+
+
+def from_jax_lpips(variables: Mapping, net: str = "vgg") -> tuple:
+    """flax ``LPIPS`` variables (calipsync_tpu/nn/lpips.py) -> (torchvision
+    trunk state_dict ``features.N.*``, lpips-package heads state_dict
+    ``lin{k}.model.1.weight``): the two checkpoint files the port's
+    :func:`calipsync_tpu_torch.nn.lpips.import_lpips` reads."""
+    from calipsync_tpu_torch.nn.lpips import conv_indices
+
+    p = variables["params"]
+    trunk: Dict[str, torch.Tensor] = {}
+    for ci in conv_indices(net):
+        _conv_bias(trunk, f"features.{ci}", p["trunk"][f"conv{ci}"])
+    heads = {f"lin{k}.model.1.weight": _conv_kernel(p[f"lin{k}"]["kernel"])
+             for k in range(5)}
+    return trunk, heads

@@ -85,11 +85,38 @@ then, on the card and with no fallback anywhere:
      single-stream replay of its walk (the batch-invariance bound), one
      tick profiled.
 
+  9. live output, under the default flags: (a) StreamingVideoManager
+     (bf16 generator at the serving defaults, random HuBERT-large) into
+     RTMPPlayer(backend='native') pushing FSV1 + 44.1 kHz PCM to
+     MiniRTMPServer on 127.0.0.1 (in a process of its own): a 30 s wav
+     at 480x480, held to real time (the median A/V drift of reads every
+     50 ms within one frame), and a 6 s wav at 1080x1920, the serve
+     command's default size, whose FSV1 encode on the player's thread is
+     slower than 25 fps on the card's host (measured, drift reported);
+     each capture read back: one audio tag a video tag, video timestamps
+     40 ms apart, every frame decoded by cv2 equal to the frame played
+     after the player's resize; first frame, frame period, render ms,
+     drift, a profiled second of the session after the wav, and the
+     FSV1 encode alone at each size; (b) ``python -m
+     calipsync_tpu_torch.cli serve --player rtmp`` in a subprocess on
+     6d's checkpoints, a wav dropped into --watch, SIGINT, the capture
+     checked; (c) the ffmpeg backend, where the machine has ffmpeg.
+ 10. evaluation, seeded SyncNet / VGG16 / AlexNet / LPIPS-head weights in
+     the reference layouts: (a) SyncNet at B=64 on step 3's lip crops,
+     card (TF32 flag on and off) against the CPU: the sync report within
+     1e-3, the same offset; (b) ``cli syncnet-train`` in a subprocess,
+     two epochs over 8b's step 1; (c) ``sync-score`` on the card and the
+     CPU, lip crops and 6b's mp4; (d) LPIPS per frame, card against CPU
+     within 1e-3 relative, and ``eval --lpips`` (frames/s); (e)
+     generator_parity_report: the serving generator (kernels) in bf16
+     and fp32 against the fp32 plain generator on the CPU (fp32 >= 60
+     dB).
+
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d, 8c) reads the launch counters, set to 0 just before it, just
-after it, and must show whole forwards: 9/17/4 launches in eval mode,
-0/0/4 in train mode (the blocks run their plain modules; the attention
-is the kernel).
+7c, 7d, 8c, 9a, 9b, 10e) reads the launch counters, set to 0 just before
+it, just after it, and must show whole forwards: 9/17/4 launches in eval
+mode, 0/0/4 in train mode (the blocks run their plain modules; the
+attention is the kernel).
 
 Prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
@@ -105,6 +132,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1869,18 +1897,696 @@ def one_pass_limit(torch, ex, seed: int, out: dict) -> None:
           f"one_pass: a {ONE_PASS_MIN_S} s clip did not run")
 
 
-def preprocess_and_serve(torch, ex, timer, seed: int, out: dict) -> dict:
-    """Phases (8a)-(8c); returns the launch counts of the multi-stream
-    paths."""
+def preprocess_and_serve(torch, ex, timer, seed: int, out: dict,
+                         tmp: str) -> tuple:
+    """Phases (8a)-(8c) in ``tmp``; returns the launch counts of the
+    multi-stream paths and 8b's directories (step 1, step 3's lip crops
+    and step 1's features) for the evaluation phases."""
     from calipsync_tpu_torch.bench_assets import make_synthetic_speaker
 
+    os.makedirs(tmp)
     face_models_phase(torch, timer, seed, out)
-    with tempfile.TemporaryDirectory() as tmp:
-        cloned = preprocess_phase(torch, ex, tmp, seed, out)
-        one_pass_limit(torch, ex, seed, out)
-        other = make_synthetic_speaker(os.path.join(tmp, "speaker2"),
-                                       n_frames=40, res=480)
-        return multistream_phase(torch, [other, cloned], seed, out)
+    cloned = preprocess_phase(torch, ex, tmp, seed, out)
+    one_pass_limit(torch, ex, seed, out)
+    other = make_synthetic_speaker(os.path.join(tmp, "speaker2"),
+                                   n_frames=40, res=480)
+    clone = dict(step1=os.path.join(tmp, "step1"),
+                 feats=os.path.join(tmp, "step1", "aud_hu.npy"),
+                 lips=os.path.join(tmp, "step3", "infer_data", "lips_jpg"))
+    return multistream_phase(torch, [other, cloned], seed, out), clone
+
+
+# ---------------------------------------------------------- live output
+
+# (width, height, seconds of audio, A/V drift held to LIVE_MAX_DRIFT_S):
+# the real-time session at the size of the JAX package's RTMP soak, then
+# the serve command's default size, where the FSV1 encode (zlib level 1
+# of 6.2 MB a frame on the player's thread) is slower than 25 fps on the
+# card's host: its times are measured and its drift reported, not held
+LIVE_SESSIONS = ((480, 480, 30.0, True), (1080, 1920, 6.0, False))
+LIVE_MAX_DRIFT_S = 0.04       # one frame period
+SERVE_WAV_SECONDS = 2.0
+SERVE_W, SERVE_H = 1080, 1920  # the serve command's defaults
+
+
+def _ingest(capture: str, conn, n_video) -> None:
+    """The child process of :class:`Ingest`."""
+    from calipsync_tpu_torch.media.flv import TAG_VIDEO
+    from calipsync_tpu_torch.media.rtmp import MiniRTMPServer
+
+    def on_tag(typ, ts, body):
+        if typ == TAG_VIDEO:
+            with n_video.get_lock():
+                n_video.value += 1
+
+    server = MiniRTMPServer(capture, on_tag=on_tag)
+    conn.send(server.url)
+    server.finished.wait()
+    conn.send(repr(server.error) if server.error else None)
+
+
+class Ingest:
+    """MiniRTMPServer (the port's loopback ingest) in a child process, as a
+    real ingest runs outside the pusher's process: its Python chunk
+    parsing (~100-750 chunks a frame) then takes no GIL time from the
+    player's thread. ``n_video`` counts the video tags received so far;
+    the capture is written to ``capture_path`` once the publisher
+    disconnects."""
+
+    def __init__(self, capture_path: str):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.capture_path = capture_path
+        self.n_video = ctx.Value("i", 0)
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_ingest, daemon=True, args=(
+            capture_path, child, self.n_video))
+        self._proc.start()
+        check(self._conn.poll(120), "the ingest process did not start")
+        self.url = self._conn.recv()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._proc.is_alive():
+            self._proc.kill()
+        self._proc.join()
+
+    def finish(self, timeout: float = 60.0) -> None:
+        """Wait for the capture; fails on an ingest error."""
+        check(self._conn.poll(timeout), f"ingest: no capture in {timeout} s")
+        error = self._conn.recv()
+        self._proc.join(10)
+        check(error is None, f"ingest error {error}")
+
+
+def check_capture(path: str, what: str, size, sources=None) -> dict:
+    """An RTMP capture (.flv): one audio tag beside each video tag, video
+    timestamps 40 ms apart from 0, and every frame decoded by cv2 at
+    ``size`` (width, height), equal to its source frame after the
+    player's own resize when ``sources`` are given (FSV1 is lossless)."""
+    import cv2
+
+    from calipsync_tpu_torch.media.flv import TAG_AUDIO, TAG_VIDEO, \
+        read_flv_tags
+
+    tags = list(read_flv_tags(path))
+    vts = [ts for t, ts, _ in tags if t == TAG_VIDEO]
+    n_audio = sum(t == TAG_AUDIO for t, _, _ in tags)
+    check(len(vts) > 0 and n_audio == len(vts),
+          f"{what}: {len(vts)} video tags, {n_audio} audio tags")
+    check(vts == [40 * i for i in range(len(vts))],
+          f"{what}: video timestamps are not 40 ms apart")
+    if sources is not None:
+        check(len(sources) == len(vts),
+              f"{what}: {len(sources)} frames played, {len(vts)} captured")
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        check(frame.shape == (size[1], size[0], 3),
+              f"{what}: decoded frame {frame.shape}")
+        if sources is not None:
+            check(np.array_equal(frame, cv2.resize(sources[n], size)),
+                  f"{what}: frame {n} decodes unlike its source")
+        n += 1
+    cap.release()
+    check(n == len(vts), f"{what}: cv2 decoded {n} of {len(vts)} frames")
+    nbytes = os.path.getsize(path)
+    print(f"{what}: capture {len(vts)} video + {n_audio} audio tags, "
+          f"timestamps 40 ms apart, {n} frames decoded by cv2"
+          f"{' equal to the played frames' if sources is not None else ''}"
+          f", {nbytes} bytes")
+    return {"video_tags": len(vts), "audio_tags": n_audio,
+            "decoded": n, "capture_bytes": nbytes}
+
+
+def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
+                 tmp) -> tuple:
+    """One StreamingVideoManager session into RTMPPlayer(backend='native')
+    at ``size``, 25 fps, pushing a ``seconds`` wav to MiniRTMPServer on
+    127.0.0.1 (in its own process); returns (its numbers, its launch
+    counts)."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.audio.io import save_wav
+    from calipsync_tpu_torch.config import InferConfig
+    from calipsync_tpu_torch.serve.players import RTMPPlayer
+    from calipsync_tpu_torch.serve.stream_manager import \
+        StreamingVideoManager
+
+    icfg = InferConfig()
+    what = f"live RTMP {size[0]}x{size[1]}"
+    wav = os.path.join(tmp, f"live_{size[0]}.wav")
+    save_wav(wav, tone_wav(seconds, seed + 60), 16_000)
+    played, stamps, drifts, render_s, render_errors = [], [], [], [], []
+
+    def on_frame(item):
+        stamps.append(time.perf_counter())
+        played.append(item["frame"])
+
+    with Ingest(os.path.join(tmp, f"live_{size[0]}.flv")) as server:
+        player = RTMPPlayer(server.url, *size, backend="native",
+                            fps=icfg.fps, sample_rate=24_000,
+                            on_frame=on_frame)
+        render = player._render
+
+        def timed_render(item):
+            t0 = time.perf_counter()
+            try:
+                render(item)
+            except Exception as e:
+                render_errors.append(repr(e))
+                raise
+            render_s.append(time.perf_counter() - t0)
+
+        player._render = timed_render
+        mgr = StreamingVideoManager(
+            synth, ex, player, output_sample_rate=24_000, fps=icfg.fps,
+            buffer_threshold=int(icfg.fps * icfg.buffer_threshold_s))
+        mgr.warmup()
+        n = mgr.add_audio_to_queue(wav)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mgr.start_playing()
+        # the player's A/V drift read every 50 ms while the wav plays
+        while len(played) < n and time.perf_counter() - t0 < 10 * seconds + 60:
+            if played:
+                drifts.append(player.av_drift())
+            time.sleep(0.05)
+        drift_end = player.av_drift()
+        # one second more of the session (idle frames), under the profiler
+        prof = device_profile(torch, lambda: time.sleep(1.0),
+                              f"{what} session, one second")
+        mgr.stop_playing()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        server.finish()
+        mgr.close()
+    check(len(played) >= n, f"{what}: {len(played)} of {n} frames played")
+    check(mgr.producer_errors == 0 and not render_errors,
+          f"{what}: {mgr.producer_errors} producer errors, render errors "
+          f"{render_errors[:3]}")
+    expect_forwards(counts, what)
+    cap = check_capture(server.capture_path, what, size, played)
+    periods = np.diff(stamps[:n])
+    drift_median = float(np.median(drifts))
+    res = dict(
+        size=list(size), frames=len(played), queued=n,
+        first_frame_s=stamps[0] - t0,
+        period_mean_ms=float(periods.mean() * 1e3),
+        period_p99_ms=float(np.percentile(periods, 99) * 1e3),
+        # how far the wav's last frame went out behind its media time
+        slip_s=float(stamps[n - 1] - stamps[0] - (n - 1) / icfg.fps),
+        render_mean_ms=float(np.mean(render_s) * 1e3),
+        render_p99_ms=float(np.percentile(render_s, 99) * 1e3),
+        drift_end_s=drift_end, drift_median_s=drift_median,
+        drift_max_s=float(np.max(drifts)), drift_samples=len(drifts),
+        drift_held=hold_drift, launches=counts, profile=prof, **cap)
+    print(f"{what} (native, {icfg.fps} fps, {seconds:.0f} s wav): {n} "
+          f"frames, first frame {res['first_frame_s']:.3f} s after "
+          f"start_playing, period mean {res['period_mean_ms']:.2f} ms / "
+          f"p99 {res['period_p99_ms']:.2f} ms, the last "
+          f"{res['slip_s']:.3f} s behind its media time; render (resize, "
+          f"FSV1 encode, PCM, socket) mean {res['render_mean_ms']:.2f} ms / "
+          f"p99 {res['render_p99_ms']:.2f} ms; A/V drift (every 50 ms, "
+          f"{len(drifts)} reads) median {drift_median * 1e3:.2f} ms, max "
+          f"{res['drift_max_s'] * 1e3:.2f} ms, at the end "
+          f"{drift_end * 1e3:.2f} ms")
+    if hold_drift:
+        check(abs(drift_median) <= LIVE_MAX_DRIFT_S,
+              f"{what}: A/V drift median {drift_median:.4f} s")
+    return res, counts
+
+
+def encode_alone_ms(data: str) -> dict:
+    """The FSV1 encode alone (no session beside it) of the speaker's
+    frames resized to each LIVE_SESSIONS size, ms a frame."""
+    import glob
+
+    import cv2
+
+    from calipsync_tpu_torch.media.flv import ScreenVideoEncoder
+
+    frames = [cv2.imread(p) for p in
+              sorted(glob.glob(os.path.join(data, "frames", "*.jpg")))[:8]]
+    res = {}
+    for w, h, *_ in LIVE_SESSIONS:
+        big = [cv2.resize(f, (w, h)) for f in frames]
+        enc = ScreenVideoEncoder()
+        t0 = time.perf_counter()
+        for f in big + big:
+            enc.encode(f)
+        res[f"{w}x{h}"] = (time.perf_counter() - t0) * 1e3 / (2 * len(big))
+    print(f"FSV1 encode alone on this host, ms a frame: {res}")
+    return res
+
+
+def live_phase(torch, ex, assets, seed, out, tmp) -> dict:
+    """(9a) StreamingVideoManager over the serving defaults (bf16
+    generator, random HuBERT-large) into the native RTMP player, one
+    session per LIVE_SESSIONS entry, after the FSV1 encode alone at each
+    size; the capture read back, every frame against the frame played;
+    first frame, frame period, render ms, A/V drift, and one profiled
+    second after the wav."""
+    from calipsync_tpu_torch.config import InferConfig
+    from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
+
+    icfg = InferConfig()
+    out["live"] = {"encode_alone_ms": encode_alone_ms(assets["data"])}
+    synth = FrameSynthesizer(None, assets["data"], model=assets["model"],
+                             batch_size=icfg.batch_size, seed=0,
+                             transfer_format=icfg.transfer_format,
+                             first_batch_size=icfg.first_window_batch)
+    paths = {}
+    for w, h, seconds, hold in LIVE_SESSIONS:
+        res, counts = live_session(torch, ex, synth, (w, h), seconds, hold,
+                                   seed, tmp)
+        out["live"][f"{w}x{h}"] = res
+        paths[f"live_rtmp_{w}x{h}"] = counts
+    synth.close()
+    return paths
+
+
+class _Lines:
+    """A subprocess's stdout lines, read on a thread."""
+
+    def __init__(self, stream):
+        import queue
+        import threading
+
+        self.lines: list = []
+        self._q = queue.Queue()
+        self._t = threading.Thread(target=self._read, args=(stream,),
+                                   daemon=True)
+        self._t.start()
+
+    def _read(self, stream):
+        for line in stream:
+            self.lines.append(line.rstrip("\n"))
+            self._q.put(self.lines[-1])
+
+    def join(self) -> None:
+        """Wait for the end of the stream (the process has exited)."""
+        self._t.join(timeout=30)
+
+    def wait_for(self, prefix: str, timeout: float) -> str:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._q.get(timeout=max(0.0, deadline
+                                               - time.monotonic()))
+            except queue.Empty:
+                raise SmokeFailure(f"no line starting {prefix!r} in "
+                                   f"{timeout} s: {self.lines[-5:]}")
+            if line.startswith(prefix):
+                return line
+
+
+def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
+    """(9b) ``python -m calipsync_tpu_torch.cli serve --player rtmp`` in a
+    subprocess on the checkpoints 6d wrote (bf16, the serving defaults,
+    1080x1920): one wav dropped into --watch, its frames captured,
+    SIGINT, the capture checked."""
+    from calipsync_tpu_torch.audio.io import save_wav
+
+    watch = os.path.join(tmp, "watch")
+    os.makedirs(watch)
+    cfg = os.path.join(tmp, "serve_live.json")
+    with open(cfg, "w") as f:
+        json.dump({"model": {"dtype": "bfloat16"}}, f)
+    wav = os.path.join(tmp, "clip.wav")
+    save_wav(wav, tone_wav(SERVE_WAV_SECONDS, seed + 61), 16_000)
+    with Ingest(os.path.join(tmp, "serve.flv")) as server, \
+            open(os.path.join(tmp, "serve.err"), "w+") as errf:
+        cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "serve",
+               "--assets", assets["data"], "--ckpt", assets["ckpt"],
+               "--hubert", assets["hubert"], "--config", cfg, "--player",
+               "rtmp", "--rtmp-url", server.url, "--watch", watch]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=errf, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            lines = _Lines(proc.stdout)
+            lines.wait_for("serving;", 600)
+            ready_s = time.perf_counter() - t0
+            # the serve loop polls every 0.2 s: the file appears whole
+            os.replace(wav, os.path.join(watch, "clip.wav"))
+            queued = lines.wait_for("queued clip.wav", 60)
+            n = int(queued.rsplit("(", 1)[1].split()[0])
+            target = server.n_video.value + n + 25
+            deadline = time.monotonic() + SERVE_WAV_SECONDS + 60
+            while (server.n_video.value < target
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=120)
+            wall = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines.join()
+        if proc.returncode:
+            errf.seek(0)
+            print("\n".join(lines.lines[-20:]), errf.read()[-4000:],
+                  file=sys.stderr)
+        check(proc.returncode == 0, f"cli serve exited {proc.returncode}")
+        server.finish()
+    res = json.loads(lines.lines[-1])
+    cap = check_capture(server.capture_path, "cli serve --player rtmp",
+                        (SERVE_W, SERVE_H))
+    check(cap["video_tags"] >= n + 25, f"cli serve: {cap['video_tags']} "
+          f"frames captured, the wav alone has {n}")
+    check(res["producer_errors"] == 0 and res["device"].startswith("cuda")
+          and "player render error" not in "\n".join(lines.lines),
+          f"cli serve: {res}")
+    expect_forwards(res["kernel_launches"], "cli serve")
+    print(f"cli serve --player rtmp (subprocess, {wall:.1f} s; serving "
+          f"{ready_s:.1f} s after start, HuBERT-large loaded and warmed "
+          f"up): {res}")
+    out["live_cli"] = dict(wall_s=wall, ready_s=ready_s, queued=n,
+                           result=res, **cap)
+    return res["kernel_launches"]
+
+
+def live_ffmpeg_phase(out, tmp) -> None:
+    """(9c) RTMPPlayer(backend='ffmpeg') pushing 3 s of synthetic frames
+    to the loopback ingest, where the machine has an ffmpeg binary."""
+    import shutil
+
+    import cv2
+
+    from calipsync_tpu_torch.serve.players import RTMPPlayer
+
+    if shutil.which("ffmpeg") is None:
+        print("live RTMP, ffmpeg backend: not run (no ffmpeg binary)")
+        out["live_ffmpeg"] = None
+        return
+    with Ingest(os.path.join(tmp, "ffmpeg.flv")) as server:
+        player = RTMPPlayer(server.url, 640, 360, backend="ffmpeg", fps=25,
+                            sample_rate=24_000)
+        rng = np.random.default_rng(0)
+        frames = [np.full((360, 640, 3), i * 3 % 256, np.uint8) for i in
+                  range(75)]
+        player.start_playing()
+        for i, f in enumerate(frames):
+            player.upload_frame({"frame": f, "index": i, "audio": (
+                rng.standard_normal(960) * 0.1).astype(np.float32)})
+        deadline = time.monotonic() + 30
+        while player.get_queue_length() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.2)
+        player.stop_playing()
+        server.finish()
+        n_video = server.n_video.value
+        cap = cv2.VideoCapture(server.capture_path)
+        decoded = 0
+        while cap.read()[0]:
+            decoded += 1
+        cap.release()
+        print(f"live RTMP, ffmpeg backend (x264 + aac): {n_video} video tags "
+              f"captured, {decoded} frames decoded of {len(frames)} pushed")
+        check(n_video > 0 and decoded > 0, "ffmpeg push: nothing captured")
+        out["live_ffmpeg"] = dict(video_tags=n_video, decoded=decoded)
+
+
+def live_output(torch, ex, assets, seed, out, tmp) -> dict:
+    """Phases (9a)-(9c); returns the launch counts of each path that runs
+    the generator."""
+    os.makedirs(tmp)
+    paths = live_phase(torch, ex, assets, seed, out, tmp)
+    paths["cli_serve"] = live_cli_phase(torch, assets, seed, out, tmp)
+    live_ffmpeg_phase(out, tmp)
+    return paths
+
+
+# ----------------------------------------------------------- evaluation
+
+SYNC_ABS_TOL = 1e-3    # sim_best, sim_at_zero, lse_c, lse_d: card vs CPU
+LPIPS_REL_TOL = 1e-3   # a frame's LPIPS: card vs CPU
+EVAL_FRAMES = 250      # frames of 6b's mp4 that sync-score and eval read
+PARITY_FP32_MIN_DB = 60.0
+
+
+def cli_json(torch, argv) -> tuple:
+    """``calipsync_tpu_torch.cli`` in this process: (its JSON output,
+    seconds)."""
+    import io
+
+    from calipsync_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    return json.loads(text[text.index("{"):]), wall
+
+
+def sync_report_close(a: dict, b: dict, what: str) -> float:
+    err = max(abs(a[k] - b[k]) for k in ("sim_best", "sim_at_zero",
+                                         "lse_c", "lse_d"))
+    check(a["av_offset_frames"] == b["av_offset_frames"] and
+          a["n_frames"] == b["n_frames"] and err <= SYNC_ABS_TOL,
+          f"{what}: {a} against {b}")
+    return err
+
+
+def read_crops(lips_dir: str) -> np.ndarray:
+    import glob
+
+    import cv2
+
+    return np.stack([cv2.resize(cv2.imread(p), (160, 160)) for p in
+                     sorted(glob.glob(os.path.join(lips_dir, "*.jpg")))])
+
+
+def syncnet_phase(torch, w, clone, out) -> None:
+    """(10a) SyncNet (hubert, avg pool), seeded weights in the reference
+    layout, B=64 over step 3's 250 lip crops and step 1's features: the
+    sync report and the embeddings on the card (default flags, and with
+    cuDNN's TF32 flag off) against the CPU, and the forward's ms."""
+    from calipsync_tpu_torch.eval import sync_metrics
+    from calipsync_tpu_torch.nn.syncnet import load_syncnet
+    from calipsync_tpu_torch.audio.windows import batched_windows
+
+    crops = read_crops(clone["lips"])
+    feats = np.load(clone["feats"])
+    cpu = load_syncnet(w["syncnet"], device="cpu")
+    card = load_syncnet(w["syncnet"], device="cuda")
+    face = torch.from_numpy(crops[:64]).float() / 255.0
+    win = batched_windows(torch.from_numpy(feats), torch.arange(len(face)))
+    with torch.inference_mode():
+        ref_emb = cpu(face, win)
+        ref = sync_metrics(cpu, crops, feats)
+        res = out["evaluation"]["syncnet"] = {}
+        for flag in (True, False):
+            with cudnn_tf32_flag(torch, flag):
+                emb = card(face.cuda(), win.cuda())
+                rep = sync_metrics(card, crops, feats)
+            e_err = max((a.cpu() - b).abs().max().item()
+                        for a, b in zip(emb, ref_emb))
+            err = sync_report_close(rep, ref, f"SyncNet, TF32 {flag}")
+            res[f"tf32_{flag}"] = dict(report=rep, report_max_err=err,
+                                       embedding_max_abs_err=e_err)
+            print(f"SyncNet B=64 card (cuDNN TF32 {flag}) vs CPU: "
+                  f"embeddings max abs err {e_err:.3g}, sync report max "
+                  f"err {err:.3g} (limit {SYNC_ABS_TOL}), offsets "
+                  f"{rep['av_offset_frames']} / {ref['av_offset_frames']}")
+        fc, wc = face.cuda(), win.cuda()
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card(fc, wc)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    res["forward_b64_ms"] = float(np.median(times[1:]))
+    res["cpu_report"] = ref
+    print(f"SyncNet forward B=64 on the card: {res['forward_b64_ms']:.2f} ms"
+          f" (host clock, synchronized); CPU report {ref}")
+
+
+def syncnet_train_phase(clone, out, tmp) -> None:
+    """(10b) ``python -m calipsync_tpu_torch.cli syncnet-train`` in a
+    subprocess, two epochs over step 1's 250 frames at B=16."""
+    save = os.path.join(tmp, "syncnet_run")
+    cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "syncnet-train",
+           "--data", clone["step1"], "--save", save, "--epochs", "2",
+           "--log-every", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"cli syncnet-train exited {proc.returncode}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(np.isfinite(res["final_loss"]) and np.isfinite(res["best_loss"])
+          and all(os.path.exists(os.path.join(save, d, "step_2.pt"))
+                  for d in ("last",))
+          and os.path.isdir(os.path.join(save, "best")),
+          f"cli syncnet-train: {res}, {os.listdir(save)}")
+    print(f"cli syncnet-train (subprocess, {wall:.1f} s with start-up): "
+          f"{res['steps']} steps, first step {res['first_step_s']} s, then "
+          f"{res['samples_per_s']} samples/s, peak memory "
+          f"{res.get('peak_memory_bytes', 0) / 2**30:.2f} GiB, losses "
+          f"{res['final_loss']} / best {res['best_loss']}")
+    out["evaluation"]["syncnet_train"] = dict(wall_s=wall, result=res)
+
+
+def sync_score_phase(torch, w, clone, assets, out) -> None:
+    """(10c) ``sync-score`` on the card and on the CPU: step 3's lip crops
+    with step 1's features, and 6b's offline mp4 (first EVAL_FRAMES
+    frames) with its features; the reports agree; frames/s on the
+    card."""
+    res = out["evaluation"]["sync_score"] = {}
+    for name, src in (("lips", ["--lips-dir", clone["lips"], "--features",
+                                clone["feats"]]),
+                      ("video", ["--video", assets["offline_mp4"],
+                                 "--features", assets["feats65"],
+                                 "--max-frames", str(EVAL_FRAMES)])):
+        argv = ["sync-score", *src, "--syncnet", w["syncnet"]]
+        card, card_s = cli_json(torch, argv)
+        cpu, cpu_s = cli_json(torch, argv + ["--device", "cpu"])
+        err = sync_report_close(card, cpu, f"sync-score {name}")
+        res[name] = dict(card=card, cpu=cpu, card_s=card_s, cpu_s=cpu_s,
+                         card_fps=card["n_frames"] / card_s,
+                         max_err=err)
+        print(f"sync-score {name}: {card['n_frames']} frames, card "
+              f"{card_s:.2f} s = {card['n_frames'] / card_s:.1f} frames/s "
+              f"(reading the frames included), CPU {cpu_s:.2f} s; reports "
+              f"agree within {err:.3g}: {card}")
+
+
+def shifted_copy(src: str, dst: str, n: int) -> str:
+    """Frames 1..n of ``src`` written as an mp4 (a video against itself a
+    frame later)."""
+    from calipsync_tpu_torch.media.video import open_video_writer
+
+    frames = read_frames(src, n + 1)[1:]
+    h, w = frames[0].shape[:2]
+    vw = open_video_writer(dst, 25, w, h)
+    for f in frames:
+        vw.write(f)
+    vw.release()
+    return dst
+
+
+def eval_phase(torch, w, assets, out, tmp) -> None:
+    """(10d) LPIPS (seeded VGG16 and AlexNet trunks and heads in the
+    torchvision and lpips layouts) between 6b's offline mp4 and itself a
+    frame later: per frame on the card (default flags and TF32 off)
+    against the CPU; then ``eval --lpips`` on the card over EVAL_FRAMES
+    frames (frames/s) and against the CPU's over 8."""
+    from calipsync_tpu_torch.core.weights import load_torch_state_dict
+    from calipsync_tpu_torch.eval import lpips_distance
+    from calipsync_tpu_torch.nn.lpips import load_lpips
+
+    a_path = assets["offline_mp4"]
+    b_path = shifted_copy(a_path, os.path.join(tmp, "shifted.mp4"),
+                          EVAL_FRAMES)
+    a = np.stack(read_frames(a_path, 8))[..., ::-1]
+    b = np.stack(read_frames(b_path, 8))[..., ::-1]
+    res = out["evaluation"]["lpips"] = {}
+    for net in ("vgg", "alex"):
+        trunk = load_torch_state_dict(w[f"{net}_trunk"])
+        heads = load_torch_state_dict(w[f"{net}_heads"])
+        ref = lpips_distance(load_lpips(trunk, heads, net, "cpu"), a, b)
+        card = load_lpips(trunk, heads, net, "cuda")
+        r = res[net] = {"cpu": ref.tolist()}
+        for flag in (True, False):
+            with cudnn_tf32_flag(torch, flag):
+                got = lpips_distance(card, a, b)
+            rel = float(np.max(np.abs(got - ref) / ref))
+            r[f"tf32_{flag}_rel_err"] = rel
+            print(f"LPIPS {net} per frame (8 frames of 480x480), card "
+                  f"(cuDNN TF32 {flag}) vs CPU: max relative err {rel:.3g} "
+                  f"(limit {LPIPS_REL_TOL}); values {np.round(ref, 5)}")
+            check(np.all(ref > 0) and rel <= LPIPS_REL_TOL,
+                  f"LPIPS {net}: card and CPU disagree")
+        argv = ["eval", "--a", a_path, "--b", b_path, "--lpips",
+                w[f"{net}_heads"], "--lpips-trunk", w[f"{net}_trunk"],
+                "--lpips-net", net]
+        full, full_s = cli_json(torch, argv + ["--max-frames",
+                                              str(EVAL_FRAMES)])
+        eight, _ = cli_json(torch, argv + ["--max-frames", "8"])
+        cpu, _ = cli_json(torch, argv + ["--max-frames", "8", "--device",
+                                         "cpu"])
+        # the command rounds LPIPS to 1e-5
+        rel = max(abs(eight[k] - cpu[k]) / cpu[k]
+                  for k in ("lpips_mean", "lpips_max"))
+        check(full["n_frames"] == EVAL_FRAMES
+              and np.isfinite(full["lpips_mean"])
+              and all(abs(eight[k] - cpu[k]) <= LPIPS_REL_TOL * cpu[k]
+                      + 1e-5 for k in ("lpips_mean", "lpips_max"))
+              and eight["psnr_db_mean"] == cpu["psnr_db_mean"],
+              f"cli eval {net}: {eight} vs {cpu}")
+        r.update(cli=full, cli_s=full_s, cli_fps=EVAL_FRAMES / full_s,
+                 cli_8_card=eight, cli_8_cpu=cpu, cli_8_rel_err=rel)
+        print(f"cli eval --lpips-net {net}: {EVAL_FRAMES} frames of 480x480"
+              f" in {full_s:.2f} s on the card = "
+              f"{EVAL_FRAMES / full_s:.1f} frames/s "
+              f"(decoding and PSNR included): {full}; 8 frames card vs "
+              f"CPU relative err {rel:.3g}")
+
+
+def parity_phase(torch, out) -> dict:
+    """(10e) generator_parity_report: the fp32 plain generator on the CPU
+    (random weights, every leaf randomized) as the reference-layout
+    module, against the serving generator on the card through the
+    kernels, in bf16 and in fp32, B=8."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.core.weights import (from_jax_generator,
+                                                  random_jax_generator)
+    from calipsync_tpu_torch.eval import generator_parity_report
+    from calipsync_tpu_torch.nn.unet import Generator
+
+    ref = Generator(mode="hubert", n_blocks=4, ops="plain")
+    ref.load_state_dict(from_jax_generator(random_jax_generator(seed=0)),
+                        strict=True)
+    kernels.reset_launches()
+    reports = {name: generator_parity_report(ref, batch=8, dtype=dt,
+                                             device="cuda")
+               for name, dt in (("bf16", torch.bfloat16),
+                                ("fp32", torch.float32))}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    expect_forwards(counts, "generator_parity_report", 2)
+    for name, r in reports.items():
+        print(f"generator_parity_report {name} (card, kernels) vs fp32 "
+              f"plain on the CPU, B=8: PSNR {r['psnr_db']:.2f} dB, max abs "
+              f"err {r['max_abs_err']:.3f} / mean {r['mean_abs_err']:.4f} "
+              f"(of 255)")
+    check(reports["fp32"]["psnr_db"] >= PARITY_FP32_MIN_DB,
+          f"fp32 parity {reports['fp32']['psnr_db']:.2f} dB")
+    check(np.isfinite(reports["bf16"]["psnr_db"]), "bf16 parity")
+    out["evaluation"]["parity"] = reports
+    return counts
+
+
+def evaluation(torch, assets, clone, seed, out, tmp) -> dict:
+    """Phases (10a)-(10e); returns the launch counts of the parity
+    report."""
+    from calipsync_tpu_torch.bench_assets import write_eval_weights
+
+    os.makedirs(tmp)
+    out["evaluation"] = {}
+    w = write_eval_weights(os.path.join(tmp, "weights"), seed=seed)
+    syncnet_phase(torch, w, clone, out)
+    syncnet_train_phase(clone, out, tmp)
+    sync_score_phase(torch, w, clone, assets, out)
+    eval_phase(torch, w, assets, out, tmp)
+    return {"parity": parity_phase(torch, out)}
 
 
 def print_kernel_resources(_build):
@@ -1946,27 +2652,35 @@ def print_kernel_resources(_build):
               f"{out[4]} B, {out[5]} blocks/SM")
 
 
-def audio_to_video(torch, seed: int, metrics: dict):
-    """Phases (a)-(d); returns the launch counts of each path that runs
-    the generator, each read from counters set to 0 just before it, and
-    the HuBERT-large extractor."""
+def audio_to_video(torch, seed: int, metrics: dict, tmp: str):
+    """Phases (a)-(d) in ``tmp``; returns the launch counts of each path
+    that runs the generator, each read from counters set to 0 just before
+    it, the HuBERT-large extractor, and what the live and evaluation
+    phases reuse (the bf16 generator, the speaker, 6b's sequential mp4
+    and its features, 6d's checkpoints)."""
     from calipsync_tpu_torch.audio.io import save_wav
     from calipsync_tpu_torch.bench_assets import make_synthetic_speaker
     from calipsync_tpu_torch.kernels.measure import random_generator
 
+    os.makedirs(tmp)
     ex, long, feats = hubert_phase(torch, seed, metrics)
     model = random_generator(torch.bfloat16)
-    with tempfile.TemporaryDirectory() as tmp:
-        data = make_synthetic_speaker(tmp, n_frames=40, res=480)
-        wav = os.path.join(tmp, "speech65.wav")
-        save_wav(wav, long, 16_000)
-        paths = offline_phase(torch, ex, wav, len(long), model, data, tmp,
-                              metrics)
-        batch_invariance(model, data, feats, metrics)
-        paths["streaming"] = streaming_phase(torch, ex, model, data, tmp,
-                                             seed, metrics)
-        paths["cli_infer"] = cli_phase(torch, ex, data, tmp, seed, metrics)
-    return paths, ex
+    data = make_synthetic_speaker(tmp, n_frames=40, res=480)
+    wav = os.path.join(tmp, "speech65.wav")
+    save_wav(wav, long, 16_000)
+    paths = offline_phase(torch, ex, wav, len(long), model, data, tmp,
+                          metrics)
+    batch_invariance(model, data, feats, metrics)
+    paths["streaming"] = streaming_phase(torch, ex, model, data, tmp,
+                                         seed, metrics)
+    paths["cli_infer"] = cli_phase(torch, ex, data, tmp, seed, metrics)
+    assets = dict(model=model, data=data,
+                  offline_mp4=os.path.join(tmp, "sequential.mp4"),
+                  feats65=os.path.join(tmp, "speech65_hubert.npy"),
+                  ckpt=os.path.join(tmp, "generator.pth"),
+                  hubert=os.path.join(tmp, "hubert"))
+    np.save(assets["feats65"], feats)
+    return paths, ex, assets
 
 
 def main() -> int:
@@ -2012,12 +2726,21 @@ def main() -> int:
     paths = {"serve": counts}
     # the audio phases run under PyTorch's default flags, as the CLI does
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    audio_paths, ex = audio_to_video(torch, args.seed, metrics)
-    paths.update(audio_paths)
-    paths.update(preprocess_and_serve(torch, ex, timer, args.seed, metrics))
-    del ex  # off the card before training measures its peak memory
-    torch.cuda.empty_cache()
-    paths.update(training(torch, timer, args.seed, metrics))
+    with tempfile.TemporaryDirectory() as work:
+        audio_paths, ex, assets = audio_to_video(
+            torch, args.seed, metrics, os.path.join(work, "audio"))
+        paths.update(audio_paths)
+        ms_paths, clone = preprocess_and_serve(
+            torch, ex, timer, args.seed, metrics, os.path.join(work,
+                                                               "clone"))
+        paths.update(ms_paths)
+        paths.update(live_output(torch, ex, assets, args.seed, metrics,
+                                 os.path.join(work, "live")))
+        del ex  # off the card before training measures its peak memory
+        torch.cuda.empty_cache()
+        paths.update(training(torch, timer, args.seed, metrics))
+        paths.update(evaluation(torch, assets, clone, args.seed, metrics,
+                                os.path.join(work, "eval")))
 
     kernels_line = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -24,6 +24,17 @@ from calipsync_tpu_torch.core.weights import (from_jax_pfld, from_jax_s3fd,
 from calipsync_tpu_torch.nn import pfld, s3fd, yolo
 from calipsync_tpu_torch.vision.lip_detector import LipDetector
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-3, 1e-5  # atol in units of the output's largest value
 
 

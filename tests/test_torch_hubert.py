@@ -25,6 +25,17 @@ from calipsync_tpu_torch.nn import hubert
 from calipsync_tpu_torch.nn.hubert import (HubertConfig, HubertModel,
                                            normalize_wav)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-4, 1e-5
 TSV = (pathlib.Path(__file__).parent / "fixtures"
        / "hubert_large_ls960_ft_state_dict_keys.tsv")

@@ -20,6 +20,17 @@ from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
 from calipsync_tpu_torch.nn.unet import Generator
 from calipsync_tpu_torch.serve.multi_stream import MultiStreamSynthesizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 BATCH = 4
 # (stream, speaker, rows) of each tick: 7 rows, two device batches a tick
 STREAMS = (("a", 0, 3), ("b", 1, 2), ("c", 0, 2))

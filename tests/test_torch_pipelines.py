@@ -33,6 +33,17 @@ from calipsync_tpu_torch.pipelines.inference import VideoStreamManager
 from calipsync_tpu_torch.serve.players import NullPlayer
 from calipsync_tpu_torch.serve.stream_manager import StreamingVideoManager
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 N_FRAMES = 10  # feature rows of the 0.4 s test wav
 
 

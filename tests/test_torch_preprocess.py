@@ -47,6 +47,17 @@ from calipsync_tpu_torch.pipelines.step3_prepare import InferPreprocessor
 from calipsync_tpu_torch.vision.lip_detector import LipDetector
 from calipsync_tpu_torch.vision.xseg import XSegMaskGenerator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 HUBERT_RTOL, HUBERT_ATOL = 1e-4, 1e-5  # tests/test_torch_hubert.py
 TINY = dict(hidden_size=24, num_hidden_layers=2, num_attention_heads=4,
             intermediate_size=48, conv_dim=(16, 16, 16),

@@ -19,6 +19,16 @@ from calipsync_tpu_torch.infer import synthesizer as torch_synth
 from calipsync_tpu_torch.nn.unet import Generator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("mode,row_shape", [("hubert", (2, 1024)),
                                             ("wenet", (8192,))])
 def test_batched_windows_matches_jax(mode, row_shape):
