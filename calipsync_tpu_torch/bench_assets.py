@@ -226,14 +226,13 @@ def write_face_weights(weights_dir: str, seed: int = 0,
     return weights_dir
 
 
-def write_eval_weights(weights_dir: str, seed: int = 0,
-                       mode: str = "hubert") -> dict:
+def write_eval_weights(weights_dir: str, seed: int = 0) -> dict:
     """Seeded evaluation networks in the reference layouts, for runs where
-    no trained weights exist: ``syncnet.pth`` (``SyncNet_color``'s keys),
-    and for LPIPS ``vgg16.pth`` / ``alexnet.pth`` (torchvision
-    ``features.N.*``) with ``lpips_vgg.pth`` / ``lpips_alex.pth`` (the
-    lpips package's ``lin{k}.model.1.weight``, non-negative as in the
-    released heads). Returns {name: path}."""
+    no trained weights exist: ``syncnet.pth`` (``SyncNet_color``'s keys,
+    hubert mode), and for LPIPS ``vgg16.pth`` / ``alexnet.pth``
+    (torchvision ``features.N.*``) with ``lpips_vgg.pth`` /
+    ``lpips_alex.pth`` (the lpips package's ``lin{k}.model.1.weight``,
+    non-negative as in the released heads). Returns {name: path}."""
     import torch
 
     from calipsync_tpu_torch.nn.lpips import LPIPS
@@ -241,7 +240,7 @@ def write_eval_weights(weights_dir: str, seed: int = 0,
 
     os.makedirs(weights_dir, exist_ok=True)
     paths = {"syncnet": os.path.join(weights_dir, "syncnet.pth")}
-    torch.save(random_state_dict(SyncNet(mode=mode), seed), paths["syncnet"])
+    torch.save(random_state_dict(SyncNet(), seed), paths["syncnet"])
     for net, trunk_file in (("vgg", "vgg16.pth"), ("alex", "alexnet.pth")):
         sd = random_state_dict(LPIPS(net), seed + 1)
         trunk = {k[len("trunk."):]: v for k, v in sd.items()
@@ -252,3 +251,59 @@ def write_eval_weights(weights_dir: str, seed: int = 0,
         torch.save(trunk, paths[f"{net}_trunk"])
         torch.save(heads, paths[f"{net}_heads"])
     return paths
+
+
+SYNC_PLANT_SHIFT = 3  # frames the planted audio leads the video
+
+
+def planted_sync(state_dict: dict, face: np.ndarray, n: int) -> tuple:
+    """A clip with an A/V shift planted in it, and SyncNet weights (hubert,
+    avg pool) that see it: (state_dict, crops (n,160,160,3) uint8,
+    features (n,2,1024) fp32).
+
+    Frame i shows ``face`` (a 160x160x3 uint8 crop) or its negative by a
+    seeded coin ``cls[i + SYNC_PLANT_SHIFT]``; feature row j is one of two
+    seeded rows by ``cls[j]``, so the audio leads the video by
+    SYNC_PLANT_SHIFT frames. Seeded random weights map every input to
+    nearly one embedding (an offset scan over real crops is flat to
+    ~1e-5), so ``state_dict`` is arranged: the audio encoder's first conv
+    reads only the window's centre row (channels 16-17,
+    audio/windows.py), and each encoder's last 1x1 conv becomes the
+    rank-one u v^T, v the difference of that encoder's penultimate
+    features (mean over space) between its two inputs, u a seeded +-1
+    pattern shared by both encoders, its bias and BatchNorm set so that
+    the two inputs land on the two halves of u. The planted offset then
+    scores ~1 and the others ~0.5. Seed 0."""
+    import torch
+
+    from calipsync_tpu_torch.nn.syncnet import load_syncnet
+
+    rng = np.random.default_rng(0)
+    cls = rng.integers(0, 2, n + SYNC_PLANT_SHIFT)
+    rows = rng.standard_normal((2, 2, 1024)).astype(np.float32)
+    faces = np.stack([face, 255 - face])
+    sd = dict(state_dict)
+    first = "audio_encoder.0.conv_block.0.weight"
+    centre = torch.zeros(sd[first].shape[1])
+    centre[16:18] = 1.0
+    sd[first] = sd[first] * centre[:, None, None]
+    net = load_syncnet(sd, device="cpu")
+    u = torch.from_numpy(rng.permutation(np.repeat([1.0, -1.0], 256)))
+    windows = torch.zeros(2, 32, 32, 32)
+    windows[..., 16:18] = torch.from_numpy(rows).reshape(
+        2, 2, 32, 32).permute(0, 2, 3, 1)
+    for name, x in (("face_encoder", torch.from_numpy(faces) / 255.0),
+                    ("audio_encoder", windows)):
+        enc = getattr(net, name)
+        with torch.no_grad():
+            p = enc[:-1](x.float().permute(0, 3, 1, 2)).mean(dim=(2, 3))
+        v = p[1] - p[0]
+        last = f"{name}.{len(enc) - 1}.conv_block"
+        half = float(v @ v) / 2
+        sd[f"{last}.0.weight"] = (u.float()[:, None] * v)[..., None, None]
+        sd[f"{last}.0.bias"] = -u.float() * float(v @ (p[0] + p[1]) / 2)
+        sd[f"{last}.1.weight"] = torch.ones(512)
+        sd[f"{last}.1.bias"] = torch.zeros(512)
+        sd[f"{last}.1.running_mean"] = torch.zeros(512)
+        sd[f"{last}.1.running_var"] = torch.full((512,), half ** 2)
+    return sd, faces[cls[SYNC_PLANT_SHIFT:]], rows[cls[:n]]

@@ -318,8 +318,10 @@ def cmd_serve(args):
 
 def cmd_syncnet_train(args):
     """Train the SyncNet evaluator on a step-1 directory; the last line is
-    a JSON summary (losses, the first step's seconds, samples/s after it,
-    and on the card the peak memory)."""
+    a JSON summary: the losses, the first step's seconds, samples/s over
+    the later steps that end no epoch, the seconds of each step that ends
+    one (its ``best/`` and ``last/`` checkpoint writes included), and on
+    the card the peak memory."""
     import torch
 
     from calipsync_tpu_torch.core.device import resolve_device
@@ -330,14 +332,22 @@ def cmd_syncnet_train(args):
     per_epoch = len(SyncNetDataset(args.data, args.mode))
     last = None
     steps = 0
-    t0 = time.perf_counter()
+    steady_s, steady_samples, epoch_end_s = 0.0, 0, []
+    t0 = t_prev = time.perf_counter()
     for (batch_idx, total, epoch, epochs, loss, best,
          elapsed) in train_sync_net(
             args.save, args.data, mode=args.mode,
             batch_size=args.batch_size, lr=args.lr, epochs=args.epochs,
             base_last_model=args.base, seed=args.seed, device=dev):
+        now = time.perf_counter()
         if steps == 0:
-            t_first = time.perf_counter()
+            first_step_s = now - t0
+        elif batch_idx == total - 1:
+            epoch_end_s.append(round(now - t_prev, 3))
+        else:
+            steady_s += now - t_prev
+            steady_samples += args.batch_size
+        t_prev = now
         steps += 1
         last = (epoch, epochs, loss, best)
         if args.log_every and batch_idx % args.log_every == 0:
@@ -346,14 +356,14 @@ def cmd_syncnet_train(args):
                   flush=True)
     if last is None:
         raise SystemExit("empty dataset")
-    t_end = time.perf_counter()
     out = {"save_dir": args.save, "epochs": last[1],
            "final_loss": round(float(last[2]), 6),
            "best_loss": round(float(last[3]), 6), "steps": steps,
-           "first_step_s": round(t_first - t0, 3),
-           "samples_per_s": (round(
-               (last[1] * per_epoch - min(args.batch_size, per_epoch))
-               / (t_end - t_first), 2) if steps > 1 else None)}
+           "samples_per_epoch": per_epoch,
+           "first_step_s": round(first_step_s, 3),
+           "samples_per_s": (round(steady_samples / steady_s, 2)
+                             if steady_samples else None),
+           "epoch_end_steps_s": epoch_end_s}
     if dev.type == "cuda":
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     print(json.dumps(out))

@@ -134,7 +134,7 @@ def cosine_bce_loss(audio_emb: torch.Tensor, face_emb: torch.Tensor,
 
 
 def load_syncnet(path_or_state_dict, mode: str = "hubert",
-                 pool: str = "avg", device=None) -> SyncNet:
+                 device=None) -> SyncNet:
     """A reference ``SyncNet_color`` .pth (a bare state_dict or one wrapped
     as ``{'state_dict': ...}``), or such a state_dict, -> :class:`SyncNet`
     loaded strictly, in eval mode, on ``device`` (default the GPU,
@@ -144,18 +144,18 @@ def load_syncnet(path_or_state_dict, mode: str = "hubert",
 
     sd = (load_torch_state_dict(path_or_state_dict)
           if isinstance(path_or_state_dict, str) else path_or_state_dict)
-    model = SyncNet(mode=mode, pool=pool)
+    model = SyncNet(mode=mode)
     model.load_state_dict(sd, strict=True)
     return model.to(resolve_device(device)).eval()
 
 
-def random_syncnet(mode: str = "hubert", pool: str = "avg", seed: int = 0,
+def random_syncnet(mode: str = "hubert",
                    device: Optional[str] = None) -> SyncNet:
-    """A SyncNet of torch's default initialisation from ``seed`` (no
-    trained SyncNet weights are in the repository), in eval mode."""
+    """A SyncNet of torch's default initialisation from seed 0 (no trained
+    SyncNet weights are in the repository), in eval mode."""
     from calipsync_tpu_torch.core.device import resolve_device
 
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = SyncNet(mode=mode, pool=pool)
+        torch.manual_seed(0)
+        model = SyncNet(mode=mode)
     return model.to(resolve_device(device)).eval()

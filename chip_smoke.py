@@ -90,23 +90,31 @@ then, on the card and with no fallback anywhere:
      RTMPPlayer(backend='native') pushing FSV1 + 44.1 kHz PCM to
      MiniRTMPServer on 127.0.0.1 (in a process of its own): a 30 s wav
      at 480x480, held to real time (the median A/V drift of reads every
-     50 ms within one frame), and a 6 s wav at 1080x1920, the serve
-     command's default size, whose FSV1 encode on the player's thread is
-     slower than 25 fps on the card's host (measured, drift reported);
+     50 ms within one frame, the median frame period within 1% of 40 ms;
+     the largest gap between renders is attributed: render, starvation,
+     garbage collection, or the whole process), and a 1.6 s wav (40
+     frames) at 1080x1920, the serve command's default size, whose FSV1
+     encode on the player's thread is slower than 25 fps on the card's
+     host (measured, drift reported);
      each capture read back: one audio tag a video tag, video timestamps
      40 ms apart, every frame decoded by cv2 equal to the frame played
      after the player's resize; first frame, frame period, render ms,
      drift, a profiled second of the session after the wav, and the
      FSV1 encode alone at each size; (b) ``python -m
      calipsync_tpu_torch.cli serve --player rtmp`` in a subprocess on
-     6d's checkpoints, a wav dropped into --watch, SIGINT, the capture
-     checked; (c) the ffmpeg backend, where the machine has ffmpeg.
+     6d's checkpoints, a 1 s wav dropped into --watch, SIGINT once its
+     frames and 3 more are captured, the capture checked; (c) the ffmpeg
+     backend, where the machine has ffmpeg.
  10. evaluation, seeded SyncNet / VGG16 / AlexNet / LPIPS-head weights in
-     the reference layouts: (a) SyncNet at B=64 on step 3's lip crops,
-     card (TF32 flag on and off) against the CPU: the sync report within
-     1e-3, the same offset; (b) ``cli syncnet-train`` in a subprocess,
-     two epochs over 8b's step 1; (c) ``sync-score`` on the card and the
-     CPU, lip crops and 6b's mp4; (d) LPIPS per frame, card against CPU
+     the reference layouts: (a) SyncNet, card (TF32 flag on and off)
+     against the CPU: the embeddings of step 3's lip crops at B=64 within
+     1e-3 (TF32) / 1e-5 (fp32) of their unit norm, and the sync report of
+     a 250-frame clip with a planted 3-frame shift (weights arranged to
+     see it, bench_assets.planted_sync) within 1e-3, the planted offset
+     found on both; (b) ``cli syncnet-train`` in a subprocess, two epochs
+     over 8b's step 1, and a batch's host read alone; (c) ``sync-score``
+     on the card and the CPU over the planted clip as lip-crop JPEGs and
+     as an mp4; (d) LPIPS per frame, card against CPU
      within 1e-3 relative, and ``eval --lpips`` (frames/s); (e)
      generator_parity_report: the serving generator (kernels) in bf16
      and fp32 against the fp32 plain generator on the CPU (fp32 >= 60
@@ -118,7 +126,8 @@ it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
 attention is the kernel).
 
-Prints the card's name and power limit, a {"kernels": [...]} line and,
+Prints every phase's wall seconds, the card's name and power limit, a
+{"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}. Exits non-zero, with no result line,
 when CUDA is unavailable, when the port is not beside this script, or
 when any phase fails. Per-launch details and every phase's numbers go to
@@ -130,6 +139,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import signal
@@ -191,6 +201,20 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# wall seconds of each phase, in the order they ran
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Records the wall seconds of the block as PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
 
 
 # ------------------------------------------------------------ the phases
@@ -1918,14 +1942,25 @@ def preprocess_and_serve(torch, ex, timer, seed: int, out: dict,
 
 # ---------------------------------------------------------- live output
 
-# (width, height, seconds of audio, A/V drift held to LIVE_MAX_DRIFT_S):
-# the real-time session at the size of the JAX package's RTMP soak, then
-# the serve command's default size, where the FSV1 encode (zlib level 1
-# of 6.2 MB a frame on the player's thread) is slower than 25 fps on the
-# card's host: its times are measured and its drift reported, not held
-LIVE_SESSIONS = ((480, 480, 30.0, True), (1080, 1920, 6.0, False))
-LIVE_MAX_DRIFT_S = 0.04       # one frame period
-SERVE_WAV_SECONDS = 2.0
+# (width, height, seconds of audio, held to real time): the real-time
+# session at the size of the JAX package's RTMP soak, then the serve
+# command's default size, where the FSV1 encode (zlib level 1 of 6.2 MB a
+# frame on the player's thread) is slower than 25 fps on the card's host:
+# 40 frames, enough for its render and period means, are measured and
+# its drift reported, not held
+LIVE_SESSIONS = ((480, 480, 30.0, True), (1080, 1920, 1.6, False))
+# held to real time: the median A/V drift within one frame period, and the
+# median frame period within 1% of 40 ms (a render 1% slower than real
+# time fails it). The mean period and how far the wav's last frame went
+# out behind its media time are reported, not held: one stall of 262-482
+# ms with the frame ready (a full garbage collection stopping every
+# thread, where attributed) put 3 of 5 H100 runs 236-465 ms behind, and
+# the player re-anchors on a stall by design rather than bursting to
+# catch up
+LIVE_MAX_DRIFT_S = 0.04
+LIVE_MAX_PERIOD_MS = 40.0 * 1.01
+SERVE_WAV_SECONDS = 1.0
+SERVE_IDLE_FRAMES = 3          # captured after the wav's before SIGINT
 SERVE_W, SERVE_H = 1080, 1920  # the serve command's defaults
 
 
@@ -2025,7 +2060,7 @@ def check_capture(path: str, what: str, size, sources=None) -> dict:
             "decoded": n, "capture_bytes": nbytes}
 
 
-def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
+def live_session(torch, ex, synth, size, seconds, real_time, seed,
                  tmp) -> tuple:
     """One StreamingVideoManager session into RTMPPlayer(backend='native')
     at ``size``, 25 fps, pushing a ``seconds`` wav to MiniRTMPServer on
@@ -2043,6 +2078,18 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
     wav = os.path.join(tmp, f"live_{size[0]}.wav")
     save_wav(wav, tone_wav(seconds, seed + 60), 16_000)
     played, stamps, drifts, render_s, render_errors = [], [], [], [], []
+    # per played frame: when its render started, and when the producer
+    # had uploaded it; the garbage collector's passes (every thread waits)
+    starts, arrived, uploaded = [], [], {}
+    gc_passes, gc_start = [], {}
+    polls = []  # this thread's drift reads: did the whole process stall?
+
+    def on_gc(event, info):
+        if event == "start":
+            gc_start["t"] = time.perf_counter()
+        elif "t" in gc_start:
+            gc_passes.append((info["generation"], gc_start.pop("t"),
+                              time.perf_counter()))
 
     def on_frame(item):
         stamps.append(time.perf_counter())
@@ -2052,10 +2099,16 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
         player = RTMPPlayer(server.url, *size, backend="native",
                             fps=icfg.fps, sample_rate=24_000,
                             on_frame=on_frame)
-        render = player._render
+        render, upload = player._render, player.upload_frame
+
+        def timed_upload(item):
+            uploaded[id(item)] = time.perf_counter()
+            upload(item)
 
         def timed_render(item):
             t0 = time.perf_counter()
+            starts.append(t0)
+            arrived.append(uploaded.pop(id(item), float("nan")))
             try:
                 render(item)
             except Exception as e:
@@ -2064,11 +2117,14 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
             render_s.append(time.perf_counter() - t0)
 
         player._render = timed_render
+        player.upload_frame = timed_upload
         mgr = StreamingVideoManager(
             synth, ex, player, output_sample_rate=24_000, fps=icfg.fps,
             buffer_threshold=int(icfg.fps * icfg.buffer_threshold_s))
         mgr.warmup()
         n = mgr.add_audio_to_queue(wav)
+        n_objects = len(gc.get_objects())
+        gc.callbacks.append(on_gc)
         kernels.reset_launches()
         t0 = time.perf_counter()
         mgr.start_playing()
@@ -2076,8 +2132,10 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
         while len(played) < n and time.perf_counter() - t0 < 10 * seconds + 60:
             if played:
                 drifts.append(player.av_drift())
+                polls.append(time.perf_counter())
             time.sleep(0.05)
         drift_end = player.av_drift()
+        gc.callbacks.remove(on_gc)
         # one second more of the session (idle frames), under the profiler
         prof = device_profile(torch, lambda: time.sleep(1.0),
                               f"{what} session, one second")
@@ -2094,10 +2152,30 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
     cap = check_capture(server.capture_path, what, size, played)
     periods = np.diff(stamps[:n])
     drift_median = float(np.median(drifts))
+    # the largest gap between two renders, and whether the player waited
+    # for the frame (it arrived after the render before it ended)
+    ends = np.add(starts[:n], render_s[:n])
+    late = np.subtract(arrived[1:n], ends[:n - 1])
+    k = int(np.argmax(np.diff(starts[:n])))
+    full = [e - b for g, b, e in gc_passes if g == 2]
+    stall = dict(frame=k + 1, gap_ms=(starts[k + 1] - starts[k]) * 1e3,
+                 render_before_ms=render_s[k] * 1e3,
+                 arrived_after_render_before_ms=float(late[k]) * 1e3,
+                 frames_waited_for=int((late > 0).sum()),
+                 render_max_ms=float(np.max(render_s[:n])) * 1e3,
+                 gc_ms_inside=sum(
+                     (min(e, starts[k + 1]) - max(b, ends[k])) * 1e3
+                     for _, b, e in gc_passes
+                     if b < starts[k + 1] and e > ends[k]),
+                 poll_gap_max_ms=float(np.max(np.diff(polls))) * 1e3,
+                 gc_objects=n_objects, gc_passes=len(gc_passes),
+                 gc_full_passes=len(full),
+                 gc_full_max_ms=max(full, default=0.0) * 1e3)
     res = dict(
         size=list(size), frames=len(played), queued=n,
         first_frame_s=stamps[0] - t0,
         period_mean_ms=float(periods.mean() * 1e3),
+        period_median_ms=float(np.median(periods) * 1e3),
         period_p99_ms=float(np.percentile(periods, 99) * 1e3),
         # how far the wav's last frame went out behind its media time
         slip_s=float(stamps[n - 1] - stamps[0] - (n - 1) / icfg.fps),
@@ -2105,20 +2183,37 @@ def live_session(torch, ex, synth, size, seconds, hold_drift, seed,
         render_p99_ms=float(np.percentile(render_s, 99) * 1e3),
         drift_end_s=drift_end, drift_median_s=drift_median,
         drift_max_s=float(np.max(drifts)), drift_samples=len(drifts),
-        drift_held=hold_drift, launches=counts, profile=prof, **cap)
-    print(f"{what} (native, {icfg.fps} fps, {seconds:.0f} s wav): {n} "
+        real_time_held=real_time, largest_gap=stall, launches=counts,
+        profile=prof, **cap)
+    print(f"{what} (native, {icfg.fps} fps, {seconds:g} s wav): {n} "
           f"frames, first frame {res['first_frame_s']:.3f} s after "
-          f"start_playing, period mean {res['period_mean_ms']:.2f} ms / "
+          f"start_playing, period median {res['period_median_ms']:.2f} "
+          f"ms / mean {res['period_mean_ms']:.2f} ms / "
           f"p99 {res['period_p99_ms']:.2f} ms, the last "
           f"{res['slip_s']:.3f} s behind its media time; render (resize, "
           f"FSV1 encode, PCM, socket) mean {res['render_mean_ms']:.2f} ms / "
           f"p99 {res['render_p99_ms']:.2f} ms; A/V drift (every 50 ms, "
           f"{len(drifts)} reads) median {drift_median * 1e3:.2f} ms, max "
           f"{res['drift_max_s'] * 1e3:.2f} ms, at the end "
-          f"{drift_end * 1e3:.2f} ms")
-    if hold_drift:
-        check(abs(drift_median) <= LIVE_MAX_DRIFT_S,
-              f"{what}: A/V drift median {drift_median:.4f} s")
+          f"{drift_end * 1e3:.2f} ms; the largest gap between renders "
+          f"{stall['gap_ms']:.1f} ms before frame {stall['frame']} (the "
+          f"render before it {stall['render_before_ms']:.1f} ms, the frame "
+          f"uploaded {stall['arrived_after_render_before_ms']:.1f} ms after "
+          f"that render ended), {stall['frames_waited_for']} frames "
+          f"uploaded after the render before them ended, render max "
+          f"{stall['render_max_ms']:.1f} ms; garbage collection "
+          f"{stall['gc_ms_inside']:.1f} ms inside that gap, "
+          f"{stall['gc_passes']} passes in the session, "
+          f"{stall['gc_full_passes']} of them full (longest "
+          f"{stall['gc_full_max_ms']:.1f} ms) over {n_objects} objects; "
+          f"this thread's 50 ms drift reads at most "
+          f"{stall['poll_gap_max_ms']:.1f} ms apart")
+    if real_time:
+        check(abs(drift_median) <= LIVE_MAX_DRIFT_S
+              and res["period_median_ms"] <= LIVE_MAX_PERIOD_MS,
+              f"{what}: not real time (A/V drift median "
+              f"{drift_median:.4f} s, period median "
+              f"{res['period_median_ms']:.3f} ms)")
     return res, counts
 
 
@@ -2156,15 +2251,17 @@ def live_phase(torch, ex, assets, seed, out, tmp) -> dict:
     from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
 
     icfg = InferConfig()
-    out["live"] = {"encode_alone_ms": encode_alone_ms(assets["data"])}
+    with phase("9a FSV1 encode alone"):
+        out["live"] = {"encode_alone_ms": encode_alone_ms(assets["data"])}
     synth = FrameSynthesizer(None, assets["data"], model=assets["model"],
                              batch_size=icfg.batch_size, seed=0,
                              transfer_format=icfg.transfer_format,
                              first_batch_size=icfg.first_window_batch)
     paths = {}
-    for w, h, seconds, hold in LIVE_SESSIONS:
-        res, counts = live_session(torch, ex, synth, (w, h), seconds, hold,
-                                   seed, tmp)
+    for w, h, seconds, real_time in LIVE_SESSIONS:
+        with phase(f"9a live RTMP {w}x{h}"):
+            res, counts = live_session(torch, ex, synth, (w, h), seconds,
+                                       real_time, seed, tmp)
         out["live"][f"{w}x{h}"] = res
         paths[f"live_rtmp_{w}x{h}"] = counts
     synth.close()
@@ -2240,7 +2337,7 @@ def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
             os.replace(wav, os.path.join(watch, "clip.wav"))
             queued = lines.wait_for("queued clip.wav", 60)
             n = int(queued.rsplit("(", 1)[1].split()[0])
-            target = server.n_video.value + n + 25
+            target = server.n_video.value + n + SERVE_IDLE_FRAMES
             deadline = time.monotonic() + SERVE_WAV_SECONDS + 60
             while (server.n_video.value < target
                    and time.monotonic() < deadline):
@@ -2262,7 +2359,8 @@ def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
     res = json.loads(lines.lines[-1])
     cap = check_capture(server.capture_path, "cli serve --player rtmp",
                         (SERVE_W, SERVE_H))
-    check(cap["video_tags"] >= n + 25, f"cli serve: {cap['video_tags']} "
+    check(cap["video_tags"] >= n + SERVE_IDLE_FRAMES,
+          f"cli serve: {cap['video_tags']} "
           f"frames captured, the wav alone has {n}")
     check(res["producer_errors"] == 0 and res["device"].startswith("cuda")
           and "player render error" not in "\n".join(lines.lines),
@@ -2322,16 +2420,23 @@ def live_output(torch, ex, assets, seed, out, tmp) -> dict:
     the generator."""
     os.makedirs(tmp)
     paths = live_phase(torch, ex, assets, seed, out, tmp)
-    paths["cli_serve"] = live_cli_phase(torch, assets, seed, out, tmp)
-    live_ffmpeg_phase(out, tmp)
+    with phase("9b cli serve --player rtmp"):
+        paths["cli_serve"] = live_cli_phase(torch, assets, seed, out, tmp)
+    with phase("9c ffmpeg backend"):
+        live_ffmpeg_phase(out, tmp)
     return paths
 
 
 # ----------------------------------------------------------- evaluation
 
 SYNC_ABS_TOL = 1e-3    # sim_best, sim_at_zero, lse_c, lse_d: card vs CPU
+# SyncNet's embeddings are unit vectors: their largest element error, card
+# against CPU, by cuDNN's TF32 flag. On (PyTorch's default): TF32's unit
+# roundoff is 4.9e-4, and an H100 read 1.66e-4; off (fp32): read 3.6e-7.
+SYNC_EMB_TOL = {True: 1e-3, False: 1e-5}
+SYNC_MIN_LSE_C = 0.1   # the planted clip's scan: its best over its median
 LPIPS_REL_TOL = 1e-3   # a frame's LPIPS: card vs CPU
-EVAL_FRAMES = 250      # frames of 6b's mp4 that sync-score and eval read
+EVAL_FRAMES = 250      # frames of the planted clip and of 6b's mp4 read
 PARITY_FP32_MIN_DB = 60.0
 
 
@@ -2353,10 +2458,16 @@ def cli_json(torch, argv) -> tuple:
 
 
 def sync_report_close(a: dict, b: dict, what: str) -> float:
+    """Two sync reports of the planted clip agree: both find its planted
+    offset with a spread of SYNC_MIN_LSE_C at least, their similarities
+    within SYNC_ABS_TOL; returns the largest difference."""
+    from calipsync_tpu_torch.bench_assets import SYNC_PLANT_SHIFT
+
     err = max(abs(a[k] - b[k]) for k in ("sim_best", "sim_at_zero",
                                          "lse_c", "lse_d"))
-    check(a["av_offset_frames"] == b["av_offset_frames"] and
-          a["n_frames"] == b["n_frames"] and err <= SYNC_ABS_TOL,
+    check(a["av_offset_frames"] == b["av_offset_frames"] == SYNC_PLANT_SHIFT
+          and a["n_frames"] == b["n_frames"] and err <= SYNC_ABS_TOL
+          and min(a["lse_c"], b["lse_c"]) >= SYNC_MIN_LSE_C,
           f"{what}: {a} against {b}")
     return err
 
@@ -2370,38 +2481,75 @@ def read_crops(lips_dir: str) -> np.ndarray:
                      sorted(glob.glob(os.path.join(lips_dir, "*.jpg")))])
 
 
-def syncnet_phase(torch, w, clone, out) -> None:
-    """(10a) SyncNet (hubert, avg pool), seeded weights in the reference
-    layout, B=64 over step 3's 250 lip crops and step 1's features: the
-    sync report and the embeddings on the card (default flags, and with
-    cuDNN's TF32 flag off) against the CPU, and the forward's ms."""
+def write_planted(torch, sd, crops, feats, tmp: str) -> dict:
+    """The planted clip as ``sync-score`` reads it: its weights (.pth), its
+    features (.npy), and its crops as a directory of JPEGs and as a
+    480x480 mp4."""
+    import cv2
+
+    from calipsync_tpu_torch.media.video import open_video_writer
+
+    paths = dict(syncnet=os.path.join(tmp, "syncnet_planted.pth"),
+                 feats=os.path.join(tmp, "planted_hubert.npy"),
+                 lips=os.path.join(tmp, "planted_lips"),
+                 mp4=os.path.join(tmp, "planted.mp4"))
+    torch.save(sd, paths["syncnet"])
+    np.save(paths["feats"], feats)
+    os.makedirs(paths["lips"])
+    vw = open_video_writer(paths["mp4"], 25, 480, 480)
+    for i, crop in enumerate(crops):
+        cv2.imwrite(os.path.join(paths["lips"], f"{i:06d}.jpg"), crop)
+        vw.write(cv2.resize(crop, (480, 480)))
+    vw.release()
+    return paths
+
+
+def syncnet_phase(torch, w, clone, tmp, out) -> dict:
+    """(10a) SyncNet (hubert, avg pool) on the card, under the default
+    flags and with cuDNN's TF32 flag off, against the CPU: the seeded
+    weights' embeddings of step 3's first 64 lip crops with step 1's
+    features (B=64) within SYNC_EMB_TOL; and sync_metrics over a clip of
+    EVAL_FRAMES frames with a shift planted in it (bench_assets.
+    planted_sync, from the first crop), whose scan has a spread, by
+    sync_report_close; then the forward's ms. Returns the planted clip's
+    files for 10c."""
+    from calipsync_tpu_torch.audio.windows import batched_windows
+    from calipsync_tpu_torch.bench_assets import planted_sync
+    from calipsync_tpu_torch.core.weights import load_torch_state_dict
     from calipsync_tpu_torch.eval import sync_metrics
     from calipsync_tpu_torch.nn.syncnet import load_syncnet
-    from calipsync_tpu_torch.audio.windows import batched_windows
 
     crops = read_crops(clone["lips"])
     feats = np.load(clone["feats"])
-    cpu = load_syncnet(w["syncnet"], device="cpu")
-    card = load_syncnet(w["syncnet"], device="cuda")
+    sd = load_torch_state_dict(w["syncnet"])
+    cpu, card = (load_syncnet(sd, device=d) for d in ("cpu", "cuda"))
     face = torch.from_numpy(crops[:64]).float() / 255.0
     win = batched_windows(torch.from_numpy(feats), torch.arange(len(face)))
+    p_sd, p_crops, p_feats = planted_sync(sd, crops[0], EVAL_FRAMES)
+    p_cpu, p_card = (load_syncnet(p_sd, device=d) for d in ("cpu", "cuda"))
+    res = out["evaluation"]["syncnet"] = {}
     with torch.inference_mode():
         ref_emb = cpu(face, win)
-        ref = sync_metrics(cpu, crops, feats)
-        res = out["evaluation"]["syncnet"] = {}
+        ref = sync_metrics(p_cpu, p_crops, p_feats)
         for flag in (True, False):
             with cudnn_tf32_flag(torch, flag):
                 emb = card(face.cuda(), win.cuda())
-                rep = sync_metrics(card, crops, feats)
+                rep = sync_metrics(p_card, p_crops, p_feats)
             e_err = max((a.cpu() - b).abs().max().item()
                         for a, b in zip(emb, ref_emb))
-            err = sync_report_close(rep, ref, f"SyncNet, TF32 {flag}")
-            res[f"tf32_{flag}"] = dict(report=rep, report_max_err=err,
-                                       embedding_max_abs_err=e_err)
-            print(f"SyncNet B=64 card (cuDNN TF32 {flag}) vs CPU: "
-                  f"embeddings max abs err {e_err:.3g}, sync report max "
-                  f"err {err:.3g} (limit {SYNC_ABS_TOL}), offsets "
-                  f"{rep['av_offset_frames']} / {ref['av_offset_frames']}")
+            err = sync_report_close(rep, ref,
+                                    f"SyncNet planted clip, TF32 {flag}")
+            res[f"tf32_{flag}"] = dict(embedding_max_abs_err=e_err,
+                                       planted_report=rep,
+                                       planted_report_max_err=err)
+            print(f"SyncNet card (cuDNN TF32 {flag}) vs CPU: embeddings of "
+                  f"64 lip crops max abs err {e_err:.3g} of their unit norm "
+                  f"(limit {SYNC_EMB_TOL[flag]}); the planted clip's report "
+                  f"max err {err:.3g} (limit {SYNC_ABS_TOL}), offset "
+                  f"{rep['av_offset_frames']}, spread (lse_c) "
+                  f"{rep['lse_c']}")
+            check(e_err <= SYNC_EMB_TOL[flag],
+                  f"SyncNet embeddings, TF32 {flag}: card vs CPU {e_err:.3g}")
         fc, wc = face.cuda(), win.cuda()
         times = []
         for _ in range(6):
@@ -2411,14 +2559,20 @@ def syncnet_phase(torch, w, clone, out) -> None:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     res["forward_b64_ms"] = float(np.median(times[1:]))
-    res["cpu_report"] = ref
+    res["cpu_planted_report"] = ref
     print(f"SyncNet forward B=64 on the card: {res['forward_b64_ms']:.2f} ms"
-          f" (host clock, synchronized); CPU report {ref}")
+          f" (host clock, synchronized); CPU report of the planted clip "
+          f"{ref}")
+    return write_planted(torch, p_sd, p_crops, p_feats, tmp)
 
 
 def syncnet_train_phase(clone, out, tmp) -> None:
     """(10b) ``python -m calipsync_tpu_torch.cli syncnet-train`` in a
-    subprocess, two epochs over step 1's 250 frames at B=16."""
+    subprocess, two epochs over step 1's 250 frames at B=16; beside it, a
+    batch's host read (SyncNetDataset.batch: 16 JPEG reads, crops and
+    resizes) timed alone, the split behind the samples/s."""
+    from calipsync_tpu_torch.train.syncnet_trainer import SyncNetDataset
+
     save = os.path.join(tmp, "syncnet_run")
     cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "syncnet-train",
            "--data", clone["step1"], "--save", save, "--epochs", "2",
@@ -2436,36 +2590,48 @@ def syncnet_train_phase(clone, out, tmp) -> None:
                   for d in ("last",))
           and os.path.isdir(os.path.join(save, "best")),
           f"cli syncnet-train: {res}, {os.listdir(save)}")
+    ds = SyncNetDataset(clone["step1"])
+    order = np.resize(np.random.default_rng(0).permutation(len(ds)), 80)
+    reads = []
+    for idxs in order.reshape(5, 16):
+        t1 = time.perf_counter()
+        ds.batch(idxs)
+        reads.append((time.perf_counter() - t1) * 1e3)
+    read_ms = float(np.median(reads))
+    step_ms = 16e3 / res["samples_per_s"]
     print(f"cli syncnet-train (subprocess, {wall:.1f} s with start-up): "
           f"{res['steps']} steps, first step {res['first_step_s']} s, then "
-          f"{res['samples_per_s']} samples/s, peak memory "
+          f"{res['samples_per_s']} samples/s ({step_ms:.1f} ms a step of 16) "
+          f"over the steps that end no epoch; the epoch-ending steps with "
+          f"their best/ and last/ writes {res['epoch_end_steps_s']} s; a "
+          f"batch's host read alone {read_ms:.1f} ms; peak memory "
           f"{res.get('peak_memory_bytes', 0) / 2**30:.2f} GiB, losses "
           f"{res['final_loss']} / best {res['best_loss']}")
-    out["evaluation"]["syncnet_train"] = dict(wall_s=wall, result=res)
+    out["evaluation"]["syncnet_train"] = dict(
+        wall_s=wall, result=res, step_ms=step_ms, batch_read_ms=read_ms)
 
 
-def sync_score_phase(torch, w, clone, assets, out) -> None:
-    """(10c) ``sync-score`` on the card and on the CPU: step 3's lip crops
-    with step 1's features, and 6b's offline mp4 (first EVAL_FRAMES
-    frames) with its features; the reports agree; frames/s on the
-    card."""
+def sync_score_phase(torch, planted, out) -> None:
+    """(10c) ``sync-score`` on the card and on the CPU over 10a's planted
+    clip, as a directory of lip-crop JPEGs and as a 480x480 mp4, each with
+    its features and weights: the reports agree (sync_report_close);
+    frames/s on the card."""
     res = out["evaluation"]["sync_score"] = {}
-    for name, src in (("lips", ["--lips-dir", clone["lips"], "--features",
-                                clone["feats"]]),
-                      ("video", ["--video", assets["offline_mp4"],
-                                 "--features", assets["feats65"],
-                                 "--max-frames", str(EVAL_FRAMES)])):
-        argv = ["sync-score", *src, "--syncnet", w["syncnet"]]
+    for name, src in (("lips", ["--lips-dir", planted["lips"]]),
+                      ("video", ["--video", planted["mp4"]])):
+        argv = ["sync-score", *src, "--features", planted["feats"],
+                "--syncnet", planted["syncnet"]]
         card, card_s = cli_json(torch, argv)
         cpu, cpu_s = cli_json(torch, argv + ["--device", "cpu"])
         err = sync_report_close(card, cpu, f"sync-score {name}")
         res[name] = dict(card=card, cpu=cpu, card_s=card_s, cpu_s=cpu_s,
                          card_fps=card["n_frames"] / card_s,
                          max_err=err)
-        print(f"sync-score {name}: {card['n_frames']} frames, card "
-              f"{card_s:.2f} s = {card['n_frames'] / card_s:.1f} frames/s "
-              f"(reading the frames included), CPU {cpu_s:.2f} s; reports "
-              f"agree within {err:.3g}: {card}")
+        print(f"sync-score {name} (the planted clip): {card['n_frames']} "
+              f"frames, card {card_s:.2f} s = "
+              f"{card['n_frames'] / card_s:.1f} frames/s (reading the "
+              f"frames included), CPU {cpu_s:.2f} s; reports agree within "
+              f"{err:.3g}: {card}")
 
 
 def shifted_copy(src: str, dst: str, n: int) -> str:
@@ -2582,11 +2748,16 @@ def evaluation(torch, assets, clone, seed, out, tmp) -> dict:
     os.makedirs(tmp)
     out["evaluation"] = {}
     w = write_eval_weights(os.path.join(tmp, "weights"), seed=seed)
-    syncnet_phase(torch, w, clone, out)
-    syncnet_train_phase(clone, out, tmp)
-    sync_score_phase(torch, w, clone, assets, out)
-    eval_phase(torch, w, assets, out, tmp)
-    return {"parity": parity_phase(torch, out)}
+    with phase("10a SyncNet card vs CPU"):
+        planted = syncnet_phase(torch, w, clone, tmp, out)
+    with phase("10b cli syncnet-train"):
+        syncnet_train_phase(clone, out, tmp)
+    with phase("10c cli sync-score"):
+        sync_score_phase(torch, planted, out)
+    with phase("10d LPIPS, cli eval"):
+        eval_phase(torch, w, assets, out, tmp)
+    with phase("10e generator_parity_report"):
+        return {"parity": parity_phase(torch, out)}
 
 
 def print_kernel_resources(_build):
@@ -2656,8 +2827,8 @@ def audio_to_video(torch, seed: int, metrics: dict, tmp: str):
     """Phases (a)-(d) in ``tmp``; returns the launch counts of each path
     that runs the generator, each read from counters set to 0 just before
     it, the HuBERT-large extractor, and what the live and evaluation
-    phases reuse (the bf16 generator, the speaker, 6b's sequential mp4
-    and its features, 6d's checkpoints)."""
+    phases reuse (the bf16 generator, the speaker, 6b's sequential mp4,
+    6d's checkpoints)."""
     from calipsync_tpu_torch.audio.io import save_wav
     from calipsync_tpu_torch.bench_assets import make_synthetic_speaker
     from calipsync_tpu_torch.kernels.measure import random_generator
@@ -2676,10 +2847,8 @@ def audio_to_video(torch, seed: int, metrics: dict, tmp: str):
     paths["cli_infer"] = cli_phase(torch, ex, data, tmp, seed, metrics)
     assets = dict(model=model, data=data,
                   offline_mp4=os.path.join(tmp, "sequential.mp4"),
-                  feats65=os.path.join(tmp, "speech65_hubert.npy"),
                   ckpt=os.path.join(tmp, "generator.pth"),
                   hubert=os.path.join(tmp, "hubert"))
-    np.save(assets["feats65"], feats)
     return paths, ex, assets
 
 
@@ -2709,36 +2878,43 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    _, build_s = _build.build(force=True)
+    with phase("kernel build"):
+        _, build_s = _build.build(force=True)
     print(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, "
           f"{len(list(_build.CSRC.glob('*.cu')))} sources in parallel)")
     print_kernel_resources(_build)
 
     timer = measure.Timer()
     table = measure.kernel_table()
-    check_errors = check_kernels(torch, table)
-    calls, fwd_ms = run_generator(torch, timer)
-    totals, per_launch, failures = measure.time_launches(table, calls, timer)
+    with phase("1-3 kernels, generator, launch times"):
+        check_errors = check_kernels(torch, table)
+        calls, fwd_ms = run_generator(torch, timer)
+        totals, per_launch, failures = measure.time_launches(table, calls,
+                                                             timer)
     check(not failures, "; ".join(failures))
     del calls
     torch.cuda.empty_cache()
-    counts, metrics = serve(torch, timer)
+    with phase("4-5 serve, profile"):
+        counts, metrics = serve(torch, timer)
     paths = {"serve": counts}
     # the audio phases run under PyTorch's default flags, as the CLI does
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     with tempfile.TemporaryDirectory() as work:
-        audio_paths, ex, assets = audio_to_video(
-            torch, args.seed, metrics, os.path.join(work, "audio"))
+        with phase("6 audio in, video out"):
+            audio_paths, ex, assets = audio_to_video(
+                torch, args.seed, metrics, os.path.join(work, "audio"))
         paths.update(audio_paths)
-        ms_paths, clone = preprocess_and_serve(
-            torch, ex, timer, args.seed, metrics, os.path.join(work,
-                                                               "clone"))
+        with phase("8 preprocessing, multi-stream"):
+            ms_paths, clone = preprocess_and_serve(
+                torch, ex, timer, args.seed, metrics,
+                os.path.join(work, "clone"))
         paths.update(ms_paths)
         paths.update(live_output(torch, ex, assets, args.seed, metrics,
                                  os.path.join(work, "live")))
         del ex  # off the card before training measures its peak memory
         torch.cuda.empty_cache()
-        paths.update(training(torch, timer, args.seed, metrics))
+        with phase("7 training"):
+            paths.update(training(torch, timer, args.seed, metrics))
         paths.update(evaluation(torch, assets, clone, args.seed, metrics,
                                 os.path.join(work, "eval")))
 
@@ -2764,11 +2940,12 @@ def main() -> int:
         for dt, r in metrics["attention_backward"].items()}
     detail = {"device": smi, "batch": BATCH, "per_launch": per_launch,
               "kernels": kernels_line, "generator_forward_ms": fwd_ms,
-              "serving": metrics}
+              "serving": metrics, "phase_seconds": PHASE_SECONDS}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
         json.dump(detail, f, indent=1)
+    print(f"phase seconds (wall): {json.dumps(PHASE_SECONDS)}")
     print("per forward (B=128 bf16), ms = sum over the kernel's launches:")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

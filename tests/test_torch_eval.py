@@ -29,7 +29,10 @@ from calipsync_tpu.nn import lpips as jlpips
 from calipsync_tpu.nn import syncnet as jsync
 from calipsync_tpu.train import syncnet_trainer as jtrainer
 from calipsync_tpu_torch import cli, eval as peval
-from calipsync_tpu_torch.bench_assets import write_eval_weights
+from calipsync_tpu_torch.bench_assets import (SYNC_PLANT_SHIFT,
+                                               planted_sync,
+                                               random_state_dict,
+                                               write_eval_weights)
 from calipsync_tpu_torch.core import checkpoint as ckpt
 from calipsync_tpu_torch.core.weights import (from_jax_lpips,
                                               from_jax_syncnet, from_jax_vgg,
@@ -423,6 +426,30 @@ def test_sync_metrics_real_syncnet_matches_jax():
                               crops, feats, max_offset=2, batch=4)
     assert ours["n_frames"] == ref["n_frames"] == 10
     assert ours["av_offset_frames"] == ref["av_offset_frames"]
+    for k in ("sim_best", "sim_at_zero", "lse_c", "lse_d"):
+        _close(ours[k], ref[k], rtol=0, atol=1e-5, msg=k)
+
+
+def test_planted_sync_clip_shows_its_shift_as_jax():
+    """bench_assets.planted_sync, the clip and arranged weights that
+    chip_smoke.py scores on the card: the port's and JAX's sync_metrics
+    (JAX's SyncNet taking the arranged state_dict through its own
+    importer) both find the planted offset with a spread; the
+    similarities within 1e-5 (the reports round to 1e-6)."""
+    face = np.random.default_rng(2).integers(0, 256, (160, 160, 3),
+                                             dtype=np.uint8)
+    sd, crops, feats = planted_sync(
+        random_state_dict(syncnet.SyncNet(), seed=0), face, 16)
+    assert crops.shape == (16, 160, 160, 3) and crops.dtype == np.uint8
+    assert feats.shape == (16, 2, 1024)
+    ours = peval.sync_metrics(syncnet.load_syncnet(sd, device="cpu"), crops,
+                              feats, max_offset=4)
+    ref = jeval.sync_metrics(
+        jsync.import_syncnet({k: v.numpy() for k, v in sd.items()}), crops,
+        feats, max_offset=4, batch=2, apply_fn=_jax_eval)
+    assert ours["av_offset_frames"] == ref["av_offset_frames"] \
+        == SYNC_PLANT_SHIFT
+    assert ours["lse_c"] > 0.1 and ours["sim_best"] > 0.99
     for k in ("sim_best", "sim_at_zero", "lse_c", "lse_d"):
         _close(ours[k], ref[k], rtol=0, atol=1e-5, msg=k)
 
