@@ -307,3 +307,172 @@ def planted_sync(state_dict: dict, face: np.ndarray, n: int) -> tuple:
         sd[f"{last}.1.running_mean"] = torch.zeros(512)
         sd[f"{last}.1.running_var"] = torch.full((512,), half ** 2)
     return sd, faces[cls[SYNC_PLANT_SHIFT:]], rows[cls[:n]]
+
+
+# The public facebook/wav2vec2-base-960h vocabulary, ids in order.
+CTC_VOCAB = ("<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N",
+             "I", "H", "S", "R", "D", "L", "U", "M", "W", "C", "F", "G", "Y",
+             "P", "B", "V", "K", "'", "X", "J", "Q", "Z")
+
+
+def write_ctc_dir(path: str, seed: int = 0, config=None) -> str:
+    """A seeded HF ``Wav2Vec2ForCTC`` directory, for runs without a trained
+    recognizer: ``config.json``, ``pytorch_model.bin`` (``torch.save``, so
+    a host without safetensors reads it), ``vocab.json``,
+    ``tokenizer_config.json`` / ``special_tokens_map.json`` (``<pad>`` the
+    blank, ``|`` the word delimiter) and ``preprocessor_config.json``
+    (``do_normalize``). By default shaped as the public
+    facebook/wav2vec2-base-960h: hidden 768, 12 layers of 12 heads,
+    intermediate 3072, the 'group' extractor without conv biases,
+    post-LN, a 32-token vocabulary. The trunk is
+    ``core.weights.random_jax_hubert(config, seed)``; the head N(0,
+    1/hidden). Returns ``path``."""
+    import json
+
+    import torch
+
+    from calipsync_tpu_torch.core.weights import (from_jax_wav2vec2_ctc,
+                                                  random_jax_hubert)
+    from calipsync_tpu_torch.nn.hubert import HubertConfig
+
+    config = config or HubertConfig.base()
+    vocab = CTC_VOCAB
+    rng = np.random.default_rng(seed + 1)
+    head = {"kernel": (rng.standard_normal((config.hidden_size, len(vocab)))
+                       * config.hidden_size ** -0.5).astype(np.float32),
+            "bias": np.zeros(len(vocab), np.float32)}
+    sd = from_jax_wav2vec2_ctc(random_jax_hubert(config, seed), head, config)
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    cfg = {f: (list(v) if isinstance(v, tuple) else v)
+           for f, v in vars(config).items()}
+    cfg.update(model_type="wav2vec2", architectures=["Wav2Vec2ForCTC"],
+               vocab_size=len(vocab), pad_token_id=vocab.index("<pad>"),
+               bos_token_id=1, eos_token_id=2, hidden_act="gelu",
+               feat_extract_activation="gelu", layerdrop=0.0,
+               ctc_loss_reduction="sum")
+    files = {
+        "config.json": cfg,
+        "vocab.json": {t: i for i, t in enumerate(vocab)},
+        "tokenizer_config.json": {
+            "tokenizer_class": "Wav2Vec2CTCTokenizer", "pad_token": "<pad>",
+            "unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+            "word_delimiter_token": "|", "do_lower_case": False},
+        "special_tokens_map.json": {"pad_token": "<pad>",
+                                    "unk_token": "<unk>",
+                                    "bos_token": "<s>", "eos_token": "</s>"},
+        "preprocessor_config.json": {
+            "feature_extractor_type": "Wav2Vec2FeatureExtractor",
+            "feature_size": 1, "sampling_rate": 16000, "padding_value": 0.0,
+            "do_normalize": True, "return_attention_mask": False}}
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f, indent=1)
+    return path
+
+
+def speech_like_wav(seconds: float, seed: int) -> np.ndarray:
+    """Bursts of 0.6-2.4 s of amplitude-modulated tone mixtures (a few
+    partials gliding in pitch, syllable-rate envelope) between silences of
+    0.6-1.4 s, starting with a silence: what a slicer and a recognizer see
+    as phrases and pauses, at 16 kHz. The silences are exact zeros, so
+    every frame of one maps to the same features."""
+    sample_rate = 16_000
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sample_rate)
+    wav = np.zeros(n, np.float64)
+    t0 = rng.uniform(0.6, 1.4)
+    while t0 < seconds - 0.6:
+        dur = min(rng.uniform(0.6, 2.4), seconds - t0)
+        s, e = int(t0 * sample_rate), int((t0 + dur) * sample_rate)
+        t = np.arange(e - s) / sample_rate
+        burst = np.zeros_like(t)
+        for _ in range(3):
+            f0, glide = rng.uniform(120, 900), rng.uniform(-60, 60)
+            burst += rng.uniform(0.05, 0.25) * np.sin(
+                2 * np.pi * (f0 * t + glide * t * t / 2)
+                + rng.uniform(0, 6))
+        burst *= 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(3, 6) * t)
+        wav[s:e] = burst * np.sin(np.pi * t / dur) ** 0.25
+        t0 += dur + rng.uniform(0.6, 1.4)
+    return wav.astype(np.float32)
+
+
+def _widest_gap(values: np.ndarray, lo: float, hi: float) -> float:
+    """The midpoint of the widest gap between consecutive sorted values in
+    [lo, hi] (the ends counted as values)."""
+    v = np.sort(np.concatenate([[lo, hi],
+                                values[(values > lo) & (values < hi)]]))
+    i = int(np.argmax(np.diff(v)))
+    return float((v[i] + v[i + 1]) / 2)
+
+
+CTC_PLANTED_LETTERS = ("E", "T")
+
+
+def planted_ctc(model_dir: str, audio: np.ndarray) -> dict:
+    """Arrange the head of the seeded recognizer in ``model_dir`` (from
+    :func:`write_ctc_dir`) so that its greedy decode of ``audio`` (16 kHz)
+    holds words and gaps with wide margins, and write it back. Seeded
+    random weights decode noise: near-ties between classes flip with the
+    last bits of the logits, and an all-blank scan shows nothing.
+
+    On the CPU, the trunk's last states h of the clip are projected on u,
+    the unit difference of their means over loud and quiet frames (frame
+    RMS over the conv stack's 400-sample window); p = u.(h - m), m the
+    midpoint of those means. Two thresholds cut p: t1 in the widest gap of
+    p between its medians over the quiet and the loud frames, t2 in the
+    widest gap of the p above t1 that leaves a tenth of them on each
+    side. With the letters of CTC_PLANTED_LETTERS, the head then scores
+    the word delimiter 0, the first letter s (p - t1), the second s (2p -
+    t1 - t2) and every other token -4 s (max p - min p): the delimiter
+    wins below t1, the first letter between t1 and t2, the second above
+    t2, and a frame's margin between its top two logits is s times its
+    distance to the nearer threshold. s = 10 / std(p). Returns {'min_margin':
+    that least margin over the clip, 'thresholds': (t1, t2), 'scale': s,
+    'logits': the planted recognizer's CPU logits of the clip (its head
+    on the states above, as its forward computes it)}.
+    """
+    import json
+
+    import torch
+
+    from calipsync_tpu_torch.audio.asr import load_hf_ctc_checkpoint
+    from calipsync_tpu_torch.audio.hubert_pipeline import _load_hf_state_dict
+
+    rec = load_hf_ctc_checkpoint(model_dir, device="cpu")
+    h32 = rec.hidden_states(audio)
+    h = h32.astype(np.float64)
+    frames = len(h)
+    x = np.asarray(audio, np.float64)
+    rms = np.array([np.sqrt(np.mean(x[320 * t:320 * t + 400] ** 2))
+                    for t in range(frames)])
+    loud = rms > 0.5 * np.median(rms[rms > np.percentile(rms, 75)])
+    hi, lo = h[loud].mean(0), h[~loud].mean(0)
+    u = (hi - lo) / np.linalg.norm(hi - lo)
+    mid = (hi + lo) / 2
+    p = (h - mid) @ u
+    t1 = _widest_gap(p, np.median(p[~loud]), np.median(p[loud]))
+    above = np.sort(p[p > t1])
+    t2 = _widest_gap(p, above[len(above) // 10], above[-len(above) // 10])
+    s = 10.0 / p.std()
+    vocab = json.loads(open(os.path.join(model_dir, "vocab.json")).read())
+    with open(os.path.join(model_dir, "config.json")) as f:
+        n_vocab = json.load(f)["vocab_size"]
+    w = np.zeros((n_vocab, len(u)))
+    b = np.full(n_vocab, -4 * s * (p.max() - p.min()))
+    b[vocab[rec.word_delimiter]] = 0.0
+    for letter, slope, cut in zip(CTC_PLANTED_LETTERS, (1, 2),
+                                  (t1, t1 + t2)):
+        w[vocab[letter]] = s * slope * u
+        b[vocab[letter]] = -s * (slope * (u @ mid) + cut)
+    sd = _load_hf_state_dict(model_dir)
+    sd["lm_head.weight"] = torch.from_numpy(w.astype(np.float32))
+    sd["lm_head.bias"] = torch.from_numpy(b.astype(np.float32))
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    margin = s * np.minimum(np.abs(p - t1), np.abs(p - t2)).min()
+    logits = torch.nn.functional.linear(torch.from_numpy(h32)[None],
+                                        sd["lm_head.weight"],
+                                        sd["lm_head.bias"])[0].numpy()
+    return {"min_margin": float(margin), "thresholds": (float(t1), float(t2)),
+            "scale": float(s), "logits": logits}

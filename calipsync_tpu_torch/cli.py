@@ -1,6 +1,5 @@
-"""Command-line interface of the port (counterpart of the step1, step3,
-clone, featurize, train, infer, serve, syncnet-train, eval and sync-score
-commands of calipsync_tpu/cli.py):
+"""Command-line interface of the port (counterpart of every command of
+calipsync_tpu/cli.py but ``export-torch``):
 
     python -m calipsync_tpu_torch.cli step1 --video v.mp4 --out data/ \\
         --weights face_weights/ --hubert hubert_dir/ [--audio v.wav]
@@ -23,6 +22,13 @@ commands of calipsync_tpu/cli.py):
         [--lpips lpips_vgg.pth --lpips-trunk vgg16.pth --lpips-net vgg]
     python -m calipsync_tpu_torch.cli sync-score --lips-dir lips_jpg/ \\
         --features aud_hu.npy [--syncnet syncnet.pth]
+    python -m calipsync_tpu_torch.cli cost --batch 1
+    python -m calipsync_tpu_torch.cli verify-weights --weights-dir w/ \\
+        [--generator g.pth] [--syncnet s.pth] [--hubert hubert_dir/] \\
+        [--vgg vgg19.pth] [--lpips-trunk t.pth --lpips-heads h.pth] \\
+        [--asr ctc_dir/]
+    python -m calipsync_tpu_torch.cli slice --audio a.wav --out segs/ \\
+        [--asr ctc_dir/] [--min-seconds 5 --max-seconds 12]
 
 ``--weights`` is the face-model directory in the reference's layout:
 ``mean_face.txt``, ``checkpoint_epoch_335.pth.tar`` (PFLD) and
@@ -30,8 +36,9 @@ commands of calipsync_tpu/cli.py):
 ``sfd_face.pth`` (S3FD). ``--hubert`` is a local HF checkpoint directory
 (``config.json`` and ``model.safetensors`` or ``pytorch_model.bin``);
 ``--ckpt`` a generator state_dict in the reference torch layout (what the
-JAX package's ``export-torch`` and the port's ``train`` write). Every
-command runs on the card unless given ``--device cpu``.
+JAX package's ``export-torch`` and the port's ``train`` write); ``--asr``
+a local HF ``Wav2Vec2ForCTC`` directory (read without ``transformers``).
+Every command runs on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -266,15 +273,18 @@ def cmd_serve(args):
 
     Drop ``<name>.wav`` into --watch to queue it (prefix ``danmu_`` for
     the high-priority queue); the avatar idles on silence otherwise.
-    Stops on Ctrl-C (SIGINT); the file player then writes its mp4, and the
-    last line is a JSON summary (frames, producer errors, kernel
-    launches).
+    Logs through ``calipsync.serve`` (stderr), the process metrics on
+    stop. Stops on Ctrl-C (SIGINT); the file player then writes its mp4,
+    and the last line of stdout is a JSON summary (frames, producer
+    errors, kernel launches).
     """
     from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.metrics import get_logger, global_metrics
     from calipsync_tpu_torch.serve.players import FilePlayer
     from calipsync_tpu_torch.serve.stream_manager import \
         StreamingVideoManager
 
+    log = get_logger("calipsync.serve")
     cfg = _load_cfg(args)
     player = build_player(args, cfg.infer.fps)
     synth = _synthesizer(args, cfg, cfg.infer.first_window_batch)
@@ -284,12 +294,12 @@ def cmd_serve(args):
         buffer_threshold=int(cfg.infer.fps * cfg.infer.buffer_threshold_s),
         output_sample_rate=sample_rate, fps=cfg.infer.fps,
         is_interrupt=args.interrupt)
-    print("warming up...", flush=True)
+    log.info("warming up...")
     mgr.warmup()
     kernels.reset_launches()
     mgr.start_playing()
-    print(f"serving; drop .wav files into {args.watch} (danmu_* = "
-          "priority)", flush=True)
+    log.info("serving; drop .wav files into %s (danmu_* = priority)",
+             args.watch)
     os.makedirs(args.watch, exist_ok=True)
     seen = set()
     try:
@@ -301,19 +311,65 @@ def cmd_serve(args):
                 queue = "danmu" if f.startswith("danmu_") else "normal"
                 n = mgr.add_audio_to_queue(os.path.join(args.watch, f),
                                            queue_name=queue)
-                print(f"queued {f} -> {queue} ({n} frames)", flush=True)
+                log.info("queued %s -> %s (%d frames)", f, queue, n)
             time.sleep(0.2)
     except KeyboardInterrupt:
-        print("stopping", flush=True)
+        log.info("stopping; metrics: %s",
+                 json.dumps(global_metrics().snapshot()))
     finally:
         mgr.close()
         synth.close()
         if isinstance(player, FilePlayer) and player.frames:
-            print(f"wrote {player.finalize()}", flush=True)
+            log.info("wrote %s", player.finalize())
     print(json.dumps({"frames_uploaded": mgr.frames_uploaded,
                       "producer_errors": mgr.producer_errors,
                       "kernel_launches": kernels.launch_counts(),
                       "device": str(synth.device)}), flush=True)
+
+
+def cmd_cost(args):
+    """The generator's FLOP count (GFLOP, one eval forward at --batch),
+    through the kernels' registered formulas on the card."""
+    from calipsync_tpu_torch.profiling import generator_cost
+
+    print(json.dumps(generator_cost(batch=args.batch,
+                                    device=args.device)["gflops"]))
+
+
+def cmd_verify_weights(args):
+    """Load every given checkpoint into the port's modules on the device
+    and report key coverage + parameter counts (verify_weights.py); exits
+    1 on a loader error or unconsumed keys."""
+    from calipsync_tpu_torch.verify_weights import verify_weights
+
+    reports = verify_weights(
+        weights_dir=args.weights_dir, generator=args.generator,
+        generator_mode=args.mode, syncnet=args.syncnet,
+        hubert=args.hubert, vgg=args.vgg,
+        lpips_trunk=args.lpips_trunk, lpips_heads=args.lpips_heads,
+        asr=args.asr, device=args.device)
+    print(json.dumps(reports, indent=2))
+    bad = [r for r in reports if r["status"] in ("error",
+                                                 "unconsumed-keys")]
+    raise SystemExit(1 if bad else 0)
+
+
+def cmd_slice(args):
+    """Slice an audio file into speech segments ({i}.wav + {i}.txt): the
+    energy VAD, or with --asr the CTC recognizer on the device."""
+    from calipsync_tpu_torch.audio.slicer import process_and_split_audio
+
+    asr_fn = None
+    if args.asr:
+        from calipsync_tpu_torch.audio.asr import load_hf_ctc_checkpoint
+
+        asr_fn = load_hf_ctc_checkpoint(args.asr,
+                                        device=args.device).as_asr_fn()
+    segs = process_and_split_audio(args.audio, args.out,
+                                   min_seconds=args.min_seconds,
+                                   max_seconds=args.max_seconds,
+                                   asr_fn=asr_fn)
+    print(json.dumps({"segments": len(segs)}))
 
 
 def cmd_syncnet_train(args):
@@ -652,6 +708,44 @@ def main(argv=None):
     sp.add_argument("--max-frames", type=int, default=500)
     device(sp)
     sp.set_defaults(fn=cmd_sync_score)
+
+    sp = sub.add_parser("cost", help="the generator's FLOP count (GFLOP)")
+    sp.add_argument("--batch", type=int, default=1)
+    device(sp)
+    sp.set_defaults(fn=cmd_cost)
+
+    sp = sub.add_parser(
+        "verify-weights",
+        help="check checkpoint files against the port's loaders (key "
+             "coverage, param counts)")
+    sp.add_argument("--weights-dir", default=None,
+                    help="reference weight-dir layout: mean_face.txt, "
+                         "sfd_face.pth, checkpoint_epoch_335.pth.tar "
+                         "[, yolov8n_face_state_dict.pth]")
+    sp.add_argument("--generator", default=None, help="UNet .pth")
+    sp.add_argument("--mode", default="hubert", choices=["hubert", "wenet"])
+    sp.add_argument("--syncnet", default=None, help="SyncNet .pth")
+    sp.add_argument("--hubert", default=None, help="HF checkpoint dir")
+    sp.add_argument("--vgg", default=None, help="torchvision vgg19 .pth")
+    sp.add_argument("--lpips-trunk", default=None)
+    sp.add_argument("--lpips-heads", default=None)
+    sp.add_argument("--asr", default=None,
+                    help="HF Wav2Vec2ForCTC dir (the slicer's recognizer)")
+    device(sp)
+    sp.set_defaults(fn=cmd_verify_weights)
+
+    sp = sub.add_parser(
+        "slice", help="slice audio into 5-12 s speech segments (reference "
+                      "get_srt stack; funasr -> CTC ASR)")
+    sp.add_argument("--audio", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--asr", default=None,
+                    help="local HF Wav2Vec2ForCTC dir: transcribing "
+                         "slicer; energy-VAD otherwise")
+    sp.add_argument("--min-seconds", type=float, default=5.0)
+    sp.add_argument("--max-seconds", type=float, default=12.0)
+    device(sp)
+    sp.set_defaults(fn=cmd_slice)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -309,6 +309,21 @@ def from_jax_hubert(variables: Mapping, config) -> Dict[str, torch.Tensor]:
     return out
 
 
+def from_jax_wav2vec2_ctc(variables: Mapping, head: Mapping,
+                          config) -> Dict[str, torch.Tensor]:
+    """A JAX CTC recognizer's weights (calipsync_tpu/audio/asr.py: the
+    flax HuBERT trunk variables and the ``{'kernel', 'bias'}`` head) -> HF
+    ``Wav2Vec2ForCTC`` keys, strict-loadable into
+    :class:`calipsync_tpu_torch.audio.asr.Wav2Vec2CTC`: the trunk as
+    :func:`from_jax_hubert` under ``wav2vec2.``, the head's (hidden,
+    vocab) kernel transposed into ``lm_head.weight``."""
+    out = {f"wav2vec2.{k}": v
+           for k, v in from_jax_hubert(variables, config).items()}
+    out["lm_head.weight"] = _t(np.asarray(head["kernel"], np.float32).T)
+    out["lm_head.bias"] = _t(head["bias"])
+    return out
+
+
 def _layer_norm(out: Dict, p: str, params: Mapping) -> None:
     out[f"{p}.weight"] = _t(params["scale"])
     out[f"{p}.bias"] = _t(params["bias"])

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
+Each wrapper calls its ``torch.library`` op (``calipsync::fused_ir``,
+``calipsync::depthwise3x3``, ``calipsync::cross_attention``), registered
+when its module is imported: the CUDA implementation launches the kernel,
+the CPU one runs the plain version. The CUDA implementation counts its
+launches in a plain integer attribute of the wrapper,
 ``<wrapper>.launches``; a run reads them to show which kernels it went
 through.
 """

@@ -2,17 +2,22 @@
 the fused-IR stage bisect, on one GPU.
 
     python -m calipsync_tpu_torch.kernels.bench [--bisect] [--dw-sweep]
-                                                [--out PATH]
+                                                [--serving] [--out PATH]
 
 Builds the kernels and records the kernel calls of one B=128 bf16
 generator forward (random weights from seed 0). Each launch is held
 against its plain version and timed beside its bound and one PyTorch
 library call computing the same function, on the yardstick that
 ``chip_smoke.py`` uses (``kernels/measure.py``); the sums per kernel over
-the forward and the forward's own time follow, and each kernel's wrapper
-host time over the forward (enqueue only). For the first cross-attention
-launch it also reads the kernel's and SDPA's device time from
-torch.profiler, and the wrapper's host time. With ``--bisect`` it builds a
+the forward, the forward's own time, the serving step's compute-only
+fps, and each kernel's host time over the forward and a call (enqueue
+only) follow, through the wrapper and, where the kernels are
+``torch.library`` ops, through the op and its CUDA implementation alone.
+With ``--serving`` it adds the serving numbers that the host's enqueue
+bounds: multi-stream fps and first frame, and a live-sized window's time
+and first frame at the default batch and head batch. For the first
+cross-attention launch it also reads the kernel's and SDPA's device time
+from torch.profiler, and the wrapper's host time. With ``--bisect`` it builds a
 second library with the fused-IR variants that stop after each stage (x
 tile in and out stored; + expand; + depthwise; the full kernel), times
 them at every fused-IR launch and reads the full kernel's clock64() phase
@@ -85,16 +90,15 @@ def host_us(fn, calls: int = 200) -> float:
     return t / calls * 1e6
 
 
-def host_us_per_forward(table, calls, reps: int = 200) -> dict:
-    """Host time of each kernel's wrapper calls of one forward (enqueue
-    only, the device idle at the start of each), microseconds: the least
-    and the median of `reps` forwards' worth. The host is shared, so the
-    least is the steadier reading."""
+def host_us_per_forward(fns: dict, calls, reps: int = 200) -> dict:
+    """Host time of each kernel's calls of one forward through ``fns[name]``
+    (enqueue only, the device idle at the start of each), microseconds: the
+    least and the median of `reps` forwards' worth. The host is shared, so
+    the least is the steadier reading."""
     out = {}
     with torch.inference_mode():
-        for name in measure.EXPECTED_PER_FORWARD:
+        for name, fn in fns.items():
             mine = [(a, kw) for n, a, kw in calls if n == name]
-            fn = table[name].kernel
             times = []
             for _ in range(reps + 1):
                 torch.cuda.synchronize()
@@ -105,6 +109,112 @@ def host_us_per_forward(table, calls, reps: int = 200) -> dict:
             torch.cuda.synchronize()
             out[name] = dict(min=min(times[1:]),
                              median=statistics.median(times[1:]))
+    return out
+
+
+def call_layers(table) -> dict:
+    """What a kernel call goes through, each layer callable on the
+    recorded wrapper arguments: the wrapper and, where this tree binds the
+    kernels as ``torch.library`` ops, the op (the dispatcher and the CUDA
+    implementation) and the CUDA implementation alone."""
+    layers = {"wrapper": {n: t.kernel for n, t in table.items()}}
+    if hasattr(depthwise, "_depthwise_cuda"):
+        from .cross_attention import _attention_cuda
+        from .fused_ir import _fused_ir_cuda
+
+        ops = torch.ops.calipsync
+        layers["op"] = {"fused_ir": ops.fused_ir.default,
+                        "depthwise3x3": ops.depthwise3x3.default,
+                        "cross_attention": ops.cross_attention.default}
+        layers["impl"] = {"fused_ir": _fused_ir_cuda,
+                          "depthwise3x3": depthwise._depthwise_cuda,
+                          "cross_attention": _attention_cuda}
+    return layers
+
+
+def _speaker(tmp: str, name: str) -> str:
+    from ..bench_assets import make_synthetic_speaker
+    return make_synthetic_speaker(os.path.join(tmp, name), n_frames=40,
+                                  res=480)
+
+
+def compute_only_fps(model, timer, rows: int = 1024) -> float:
+    """``measure.compute_only_fps`` (chip_smoke.py's compute-only number)
+    of FrameSynthesizer at B=BATCH over ``rows`` feature rows of a
+    synthetic 480x480 speaker."""
+    import tempfile
+
+    import numpy as np
+
+    from ..infer.synthesizer import FrameSynthesizer
+
+    feats = np.random.default_rng(3).standard_normal(
+        (rows, 2, 1024)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        synth = FrameSynthesizer(None, _speaker(tmp, "s0"), model=model,
+                                 batch_size=BATCH, seed=0,
+                                 transfer_format="bgr")
+        fps = measure.compute_only_fps(synth, torch.from_numpy(feats).to(
+            synth.device, model.dtype), timer)
+        synth.close()
+    return fps
+
+
+def serving(model, streams: int = 16, window: int = 25, ticks: int = 8,
+            requests: int = 20) -> dict:
+    """The serving numbers that the host's enqueue bounds, bgr, synthetic
+    480x480 speakers: multi-stream at B=BATCH (``streams`` streams of
+    ``window`` frames over two speakers, a warm-up tick and ``ticks``
+    timed) and live-sized windows (``window`` rows at InferConfig's batch
+    size and first-window head batch, a warm-up and ``requests`` timed);
+    medians and least."""
+    import tempfile
+
+    import numpy as np
+
+    from ..config import InferConfig
+    from ..infer.synthesizer import FrameSynthesizer
+    from ..serve.multi_stream import MultiStreamSynthesizer
+
+    rng = np.random.default_rng(40)
+
+    def rows(n):
+        return rng.standard_normal((n, 2, 1024)).astype(np.float32)
+
+    def stats(values, scale=1e3):
+        return dict(median=statistics.median(values) * scale,
+                    min=min(values) * scale)
+
+    icfg = InferConfig()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        speakers = [_speaker(tmp, "s0"), _speaker(tmp, "s1")]
+        ms = MultiStreamSynthesizer(None, speakers, model=model,
+                                    batch_size=BATCH, transfer_format="bgr")
+        ids = [f"s{i}" for i in range(streams)]
+        for i, sid in enumerate(ids):
+            ms.add_stream(sid, speaker=i % 2)
+        windows = [{sid: rows(window) for sid in ids}
+                   for _ in range(ticks + 1)]
+        _, walls, firsts = measure.multistream_ticks(ms, windows)
+        ms.close()
+        out["multistream_bgr"] = dict(
+            fps=ticks * streams * window / sum(walls[1:]),
+            tick_ms=stats(walls[1:]), first_frame_ms=stats(firsts[1:]))
+        synth = FrameSynthesizer(None, speakers[0], model=model,
+                                 batch_size=icfg.batch_size, seed=0,
+                                 transfer_format="bgr")
+        feats = rows(window)
+        walls, firsts = [], []
+        for _ in range(requests + 1):
+            _, wall, first, head = measure.timed_request(
+                synth, feats, icfg.first_window_batch)
+            walls.append(wall)
+            firsts.append(first)
+        synth.close()
+        out["live_window"] = dict(
+            batch=icfg.batch_size, head_batch=head, rows=window,
+            window_ms=stats(walls[1:]), first_frame_ms=stats(firsts[1:]))
     return out
 
 
@@ -228,6 +338,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bisect", action="store_true")
     ap.add_argument("--dw-sweep", action="store_true")
+    ap.add_argument("--serving", action="store_true")
     ap.add_argument("--out", default="kernel_bench.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -245,14 +356,33 @@ def main() -> int:
     with torch.inference_mode():
         _, counts, calls = measure.record_forward(model, x, a)
         fwd_ms = timer.ms(lambda: model(x, a), warmup=1, reps=5)
+    fps = compute_only_fps(model, timer)
+    serve = serving(model) if args.serving else None
+    if serve:
+        ms_, live = serve["multistream_bgr"], serve["live_window"]
+        print(f"multi-stream bgr: {ms_['fps']:.2f} fps, tick "
+              f"{ms_['tick_ms']['median']:.2f} ms, first frame "
+              f"{ms_['first_frame_ms']['median']:.2f} ms (medians); live "
+              f"window of {live['rows']} rows at B={live['batch']}, head "
+              f"{live['head_batch']}: {live['window_ms']['median']:.2f} / "
+              f"{live['window_ms']['min']:.2f} ms, first frame "
+              f"{live['first_frame_ms']['median']:.2f} / "
+              f"{live['first_frame_ms']['min']:.2f} ms (median / least)")
     del model
     print(f"generator forward bf16 B={BATCH}: {fwd_ms:.3f} ms, launches "
-          f"{counts}")
+          f"{counts}; compute-only {fps:.1f} fps")
     table = measure.kernel_table()
-    host = host_us_per_forward(table, calls)
+    host_layers = {layer: host_us_per_forward(fns, calls)
+                   for layer, fns in call_layers(table).items()}
+    host = host_layers["wrapper"]
     print("wrapper host time a forward (enqueue only, least / median): "
           + ", ".join(f"{k} {v['min']:.1f} / {v['median']:.1f} us"
                       for k, v in host.items()))
+    for layer, times in host_layers.items():
+        print(f"{layer} host time a call (least / median): " + ", ".join(
+            f"{k} {v['min'] / n:.2f} / {v['median'] / n:.2f} us"
+            for k, v in times.items()
+            for n in [measure.EXPECTED_PER_FORWARD[k]]))
     totals, rows, failures = measure.time_launches(table, calls, timer,
                                                    plain=False)
     for name, us in host.items():
@@ -297,6 +427,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": smi, "batch": BATCH, "forward_ms": fwd_ms,
+                   "compute_only_fps": fps, "serving": serve,
+                   "host_us_by_layer": host_layers,
                    "per_forward": totals, "per_launch": rows,
                    "dw_sweep": sweep}, f, indent=1)
     for msg in failures:

@@ -6,11 +6,14 @@ Counterpart of calipsync_tpu/kernels/cross_attention.py
 softmax(q k^T) v with no 1/sqrt(d) scaling, the scores, probabilities and
 accumulation in fp32, the result in v's dtype.
 
-``cross_attention`` is differentiable (:class:`CrossAttentionFunction`).
-Its forward runs the kernel on a CUDA tensor and the plain version on a
-CPU tensor, and never falls back from one to the other; its backward is
+``cross_attention`` calls the op ``calipsync::cross_attention``
+(``torch.library``). Its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and it never falls back from one to
+the other. Its registered autograd saves q, k and v and runs
 :func:`cross_attention_backward_plain` on either device, as the JAX
-package's backward is plain XLA outside its Pallas kernel.
+package's backward is plain XLA outside its Pallas kernel. A fake
+implementation and a FLOP formula serve ``torch.export`` and
+``FlopCounterMode``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -68,37 +72,25 @@ def cross_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class CrossAttentionFunction(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain version) forward, with
-    :func:`cross_attention_backward_plain` as its backward; q, k and v are
-    saved for it."""
-
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return cross_attention_plain(q, k, v)
-        return _launch(q, k, v)
-
-    @staticmethod
-    def backward(ctx, g):
-        return cross_attention_backward_plain(*ctx.saved_tensors, g)
-
-
 def cross_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """softmax(q @ k^T) @ v over tokens, no scaling (reference-exact),
-    differentiable in q, k and v.
+    differentiable in q, k and v: the op ``calipsync::cross_attention``.
 
     q, k (B,N,D); v (B,N,C); one dtype, float32 or bfloat16.
     Returns (B,N,C) in v.dtype. ``cross_attention.launches`` counts the
     kernel's launches (forwards on the card).
     """
-    return CrossAttentionFunction.apply(q, k, v)
+    return torch.ops.calipsync.cross_attention.default(q, k, v)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor) -> torch.Tensor:
+cross_attention.launches = 0
+
+
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch: checks, one launch on the current stream,
+    counted."""
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention: no kernel for device {q.device}")
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 \
@@ -120,12 +112,40 @@ def _launch(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"cross_attention: N={n}, D={d} need {smem} bytes "
                          f"of shared memory, more than the card's {MAX_SMEM}")
     out = torch.empty((b, n, c), dtype=v.dtype, device=v.device)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), code, b, n, d, c,
-                          torch.cuda.current_stream(q.device).cuda_stream)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                code, b, n, d, c,
+                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "cross_attention")
     cross_attention.launches += 1
     return out
 
 
-cross_attention.launches = 0
+def _attention_fake(q, k, v):
+    return v.new_empty((*q.shape[:2], v.shape[-1]))
+
+
+def _attention_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _attention_backward(ctx, g):
+    return cross_attention_backward_plain(*ctx.saved_tensors, g)
+
+
+def _attention_flops(q, k, v, *args, out_shape=None, **kwargs) -> int:
+    """q k^T and p v, two FLOP a multiply-add (the softmax is elementwise
+    work, which FlopCounterMode does not count)."""
+    b, n, d = q
+    return 2 * b * n * n * (d + v[-1])
+
+
+_LIB = torch.library.Library("calipsync", "FRAGMENT")
+_LIB.define("cross_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
+_LIB.impl("cross_attention", cross_attention_plain, "CPU")
+_LIB.impl("cross_attention", _attention_cuda, "CUDA")
+torch.library.register_fake("calipsync::cross_attention", _attention_fake,
+                            lib=_LIB)
+torch.library.register_autograd("calipsync::cross_attention",
+                                _attention_backward,
+                                setup_context=_attention_setup, lib=_LIB)
+register_flop_formula(torch.ops.calipsync.cross_attention)(_attention_flops)

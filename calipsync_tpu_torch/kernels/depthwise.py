@@ -6,8 +6,11 @@ Counterpart of calipsync_tpu/kernels/depthwise.py: ``depthwise3x3`` and
 Hopper kernel serves both. ``fold_bn`` turns BatchNorm parameters into the
 (scale, bias) the op consumes.
 
-``depthwise3x3`` runs the kernel on a CUDA tensor and the plain version on
-a CPU tensor; it never falls back from one to the other. On the card, bf16
+``depthwise3x3`` calls the op ``calipsync::depthwise3x3``
+(``torch.library``): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and it never falls back from one to
+the other; a fake implementation and a FLOP formula serve
+``torch.export`` and ``FlopCounterMode``. On the card, bf16
 with C a multiple of 8 and 16-byte-aligned tensors takes the TMA kernel,
 tiled by ``plan_tiles`` (host code, tested on the CPU); anything else takes
 the simple CUDA kernel.
@@ -19,8 +22,10 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from .fused_ir import as_fp32
 
 LEAKY_SLOPE = 0.01
 
@@ -227,16 +232,38 @@ def depthwise3x3(x: torch.Tensor, kernel: torch.Tensor,
                  scale: torch.Tensor | None = None,
                  bias: torch.Tensor | None = None,
                  stride: int = 1) -> torch.Tensor:
-    """y = leaky_relu(dwconv3x3(x, kernel) * scale + bias), pad 1.
+    """y = leaky_relu(dwconv3x3(x, kernel) * scale + bias), pad 1, the op
+    ``calipsync::depthwise3x3``.
 
     x (B,H,W,C) NHWC float32 or bfloat16; kernel (3,3,C), (3,3,1,C) or
     (9,C); scale/bias (C,) (folded BN, default identity); stride 1 or 2.
-    Returns (B, (H-1)//stride+1, (W-1)//stride+1, C) in x.dtype.
+    Returns (B, (H-1)//stride+1, (W-1)//stride+1, C) in x.dtype. The taps,
+    scale and bias reach the op as fp32 (9,C), (C,) and (C,) on x's
+    device. Not differentiable: a backward through it raises.
     """
-    if x.device.type == "cpu":
-        return depthwise3x3_plain(x, kernel, scale, bias, stride)
+    c, dev = x.shape[-1], x.device
+
+    def fp32_on(t):
+        if t.dtype != torch.float32 or t.device != dev:
+            t = t.to(dev, torch.float32)
+        return t if t.is_contiguous() else t.contiguous()
+
+    taps = fp32_on(_taps9(kernel))
+    scale = (torch.ones(c, device=dev) if scale is None else fp32_on(scale))
+    bias = (torch.zeros(c, device=dev) if bias is None else fp32_on(bias))
+    return torch.ops.calipsync.depthwise3x3.default(x, taps, scale, bias,
+                                                    stride)
+
+
+depthwise3x3.launches = 0
+
+
+def _depthwise_cuda(x, taps, scale, bias, stride):
+    """The kernel's launch: checks, the TMA kernel's plan (or the simple
+    kernel), one launch on the current stream, counted."""
     if x.device.type != "cuda":
-        raise ValueError(f"depthwise3x3: no kernel for device {x.device}")
+        raise ValueError(f"depthwise3x3: x on {x.device}, the taps on the "
+                         f"card")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("depthwise3x3: x must be a contiguous (B,H,W,C) "
                          "tensor")
@@ -244,25 +271,47 @@ def depthwise3x3(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"depthwise3x3: stride must be 1 or 2, not {stride}")
     b, h, w, c = x.shape
     _build.dtype_code(x.dtype)
-    dev = x.device
-    taps = _taps9(kernel).to(dev, torch.float32).contiguous()
     if taps.shape != (9, c):
-        raise ValueError(f"depthwise3x3: kernel holds {tuple(kernel.shape)} "
-                         f"taps for {c} channels")
-    scale = (torch.ones(c, device=dev) if scale is None
-             else scale.to(dev, torch.float32).contiguous())
-    bias = (torch.zeros(c, device=dev) if bias is None
-            else bias.to(dev, torch.float32).contiguous())
+        raise ValueError(f"depthwise3x3: {tuple(taps.shape)} taps for {c} "
+                         f"channels")
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError("depthwise3x3: scale and bias must be (C,)")
-    plan = (_plan_array((b, h, w, c, stride, dev.index))
+    plan = (_plan_array((b, h, w, c, stride, x.device.index))
             if takes_tma_kernel(x, taps, scale, bias) else None)
     out = launch(x, taps, scale, bias, stride, plan)
     depthwise3x3.launches += 1
     return out
 
 
-depthwise3x3.launches = 0
+def _depthwise_fake(x, taps, scale, bias, stride):
+    b, h, w, c = x.shape
+    return x.new_empty((b, _out_size(h, stride), _out_size(w, stride), c))
+
+
+def _depthwise_backward(ctx, grad):
+    raise RuntimeError("calipsync::depthwise3x3 has no gradient: it runs "
+                       "eval-mode blocks with BatchNorm folded (train mode "
+                       "runs the plain modules)")
+
+
+def _depthwise_flops(x, taps, scale, bias, stride, *args, out_shape=None,
+                     **kwargs) -> int:
+    """The nine taps' multiply-adds, two FLOP each (scale, bias and the
+    activation are elementwise, which FlopCounterMode does not count)."""
+    b, h, w, c = x
+    return 2 * 9 * b * _out_size(h, stride) * _out_size(w, stride) * c
+
+
+_LIB = torch.library.Library("calipsync", "FRAGMENT")
+_LIB.define("depthwise3x3(Tensor x, Tensor taps, Tensor scale, Tensor bias, "
+            "int stride) -> Tensor")
+_LIB.impl("depthwise3x3", depthwise3x3_plain, "CPU")
+_LIB.impl("depthwise3x3", _depthwise_cuda, "CUDA")
+torch.library.register_fake("calipsync::depthwise3x3", _depthwise_fake,
+                            lib=_LIB)
+torch.library.register_autograd("calipsync::depthwise3x3",
+                                _depthwise_backward, lib=_LIB)
+register_flop_formula(torch.ops.calipsync.depthwise3x3)(_depthwise_flops)
 
 
 def fold_bn(bn_weight: torch.Tensor, bn_bias: torch.Tensor,
@@ -270,5 +319,5 @@ def fold_bn(bn_weight: torch.Tensor, bn_bias: torch.Tensor,
             eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode BatchNorm -> per-channel (scale, bias) in fp32:
     s = weight / sqrt(var + eps), b = bias - mean * s."""
-    s = bn_weight.float() / torch.sqrt(running_var.float() + eps)
-    return s, bn_bias.float() - running_mean.float() * s
+    s = as_fp32(bn_weight) / torch.sqrt(as_fp32(running_var) + eps)
+    return s, as_fp32(bn_bias) - as_fp32(running_mean) * s

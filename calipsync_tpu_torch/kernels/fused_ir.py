@@ -11,8 +11,13 @@ Counterpart of calipsync_tpu/kernels/fused_ir.py
 
 with fp32 accumulation and w1, kd, w2 cast to x.dtype first.
 
-``fused_inverted_residual`` runs the kernel on a CUDA tensor and the plain
-version on a CPU tensor; it never falls back from one to the other.
+``fused_inverted_residual`` calls the op ``calipsync::fused_ir``
+(``torch.library``), whose CUDA implementation launches the kernel and
+whose CPU implementation is the plain version: an explicit dispatch on
+the input's device, never a fallback from one to the other. The op's fake
+implementation gives ``torch.export`` the output's shape and dtype, and
+its FLOP formula lets ``FlopCounterMode`` count it. It has no gradient
+(eval mode only): its registered backward raises.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -31,6 +37,12 @@ MAX_SMEM = 232448
 
 def _leaky(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t >= 0, t, LEAKY_SLOPE * t)
+
+
+def as_fp32(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, with no cast where it is fp32 already (so a traced fold
+    records none: ``torch.export`` keeps a node for every cast)."""
+    return t if t.dtype == torch.float32 else t.float()
 
 
 def fused_inverted_residual_plain(x, w1, b1, kd, bd, w2, b2, *,
@@ -77,24 +89,38 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
                             bd: torch.Tensor, w2: torch.Tensor,
                             b2: torch.Tensor, *,
                             residual: bool = False) -> torch.Tensor:
-    """Stride-1 inverted residual with BN folded (eval mode).
+    """Stride-1 inverted residual with BN folded (eval mode), the op
+    ``calipsync::fused_ir``.
 
     x (B,H,W,Cin) NHWC float32 or bfloat16; w1 (Cin,Ch); b1 (Ch,);
     kd (9,Ch) or (3,3,Ch) [3x3 taps row-major]; bd (Ch,); w2 (Ch,Cout);
     b2 (Cout,). Returns (B,H,W,Cout) in x.dtype. ``residual`` adds x
     (Cin == Cout). On the card, bf16 runs the tensor-core kernel (Cout at
-    most 128) and fp32 the CUDA-core kernel.
+    most 128) and fp32 the CUDA-core kernel. Not differentiable: a
+    backward through it raises.
     """
+    if residual and w1.shape[0] != w2.shape[1]:
+        raise ValueError("residual needs cin == cout")
+    return torch.ops.calipsync.fused_ir.default(x, w1, b1, kd, bd, w2, b2,
+                                                residual)
+
+
+fused_inverted_residual.launches = 0
+
+
+def _fused_ir_cpu(x, w1, b1, kd, bd, w2, b2, residual):
+    return fused_inverted_residual_plain(x, w1, b1, kd, bd, w2, b2,
+                                         residual=residual)
+
+
+def _fused_ir_cuda(x, w1, b1, kd, bd, w2, b2, residual):
+    """The kernel's launch: checks, then one launch on the current
+    stream, counted."""
     cin, ch = w1.shape
     cout = w2.shape[1]
-    if residual and cin != cout:
-        raise ValueError("residual needs cin == cout")
-    if x.device.type == "cpu":
-        return fused_inverted_residual_plain(x, w1, b1, kd, bd, w2, b2,
-                                             residual=residual)
     if x.device.type != "cuda":
-        raise ValueError(f"fused_inverted_residual: no kernel for device "
-                         f"{x.device}")
+        raise ValueError(f"fused_inverted_residual: x on {x.device}, the "
+                         f"weights on the card")
     if x.dim() != 4 or not x.is_contiguous() or x.shape[-1] != cin:
         raise ValueError(f"fused_inverted_residual: x must be a contiguous "
                          f"(B,H,W,{cin}) tensor, got {tuple(x.shape)}")
@@ -123,7 +149,34 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
     return out
 
 
-fused_inverted_residual.launches = 0
+def _fused_ir_fake(x, w1, b1, kd, bd, w2, b2, residual):
+    return x.new_empty((*x.shape[:3], w2.shape[1]))
+
+
+def _fused_ir_backward(ctx, grad):
+    raise RuntimeError("calipsync::fused_ir has no gradient: it runs "
+                       "eval-mode blocks with BatchNorm folded (train mode "
+                       "runs the plain modules)")
+
+
+def _fused_ir_flops(x, w1, b1, kd, bd, w2, b2, residual, *args,
+                    out_shape=None, **kwargs) -> int:
+    """Multiply-adds of the expand, the depthwise taps and the project,
+    two FLOP each (shapes, as FlopCounterMode passes them)."""
+    b, h, w, _ = x
+    cin, ch = w1
+    return 2 * b * h * w * (cin * ch + 9 * ch + ch * w2[1])
+
+
+_LIB = torch.library.Library("calipsync", "FRAGMENT")
+_LIB.define("fused_ir(Tensor x, Tensor w1, Tensor b1, Tensor kd, Tensor bd, "
+            "Tensor w2, Tensor b2, bool residual) -> Tensor")
+_LIB.impl("fused_ir", _fused_ir_cpu, "CPU")
+_LIB.impl("fused_ir", _fused_ir_cuda, "CUDA")
+torch.library.register_fake("calipsync::fused_ir", _fused_ir_fake, lib=_LIB)
+torch.library.register_autograd("calipsync::fused_ir", _fused_ir_backward,
+                                lib=_LIB)
+register_flop_formula(torch.ops.calipsync.fused_ir)(_fused_ir_flops)
 
 
 def kernel_weights(x, w1, b1, kd, bd, w2, b2) -> tuple:
@@ -156,7 +209,7 @@ def fold_ir_params(expand: tuple, depthwise: tuple, project: tuple):
     """
 
     def fold(stage):
-        wt, gamma, beta, mean, var = (t.float() for t in stage)
+        wt, gamma, beta, mean, var = (as_fp32(t) for t in stage)
         s = gamma / torch.sqrt(var + BN_EPS)
         return wt * s[:, None, None, None], beta - mean * s
 

@@ -2,13 +2,15 @@
 and ``kernels/bench.py``: the CUDA-event timer, the tolerances of a kernel
 against its plain version, the bound of each launch, the PyTorch library
 call that computes the same function (timed for comparison, never called by
-the port), and the launches of one generator forward, recorded with their
-inputs.
+the port), the launches of one generator forward, recorded with their
+inputs, and the serving numbers (compute-only fps, a streamed request's
+first frame, multi-stream ticks).
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -380,3 +382,64 @@ def attention_grad_errors(model, records: dict, ops) -> dict:
                 errors[f"{name}.{n}"] = ((leaves[n].grad.double() - g).norm()
                                          / g.norm()).item()
     return errors
+
+
+# --------------------------------------------------------------- serving
+
+def compute_only_fps(synth, feats: torch.Tensor, timer,
+                     reps: int = 5) -> float:
+    """Frames a second of the serving device step alone: ``synth``'s
+    resident bgr step at its batch size over every row of ``feats``
+    ((rows, 2, 1024) on the card, in the model's dtype), CUDA events, L2
+    flushed."""
+    step = synth._generate_resident_fns["bgr"]
+    dev, batch = synth.device, synth.batch_size
+    phys = torch.arange(batch, device=dev) % synth.total_frames
+    idx = [torch.arange(i, i + batch, device=dev)
+           for i in range(0, len(feats), batch)]
+
+    def all_batches():
+        for fi in idx:
+            step(synth._crops_dev, phys, feats, fi)
+
+    return len(feats) / (timer.ms(all_batches, warmup=1, reps=reps) / 1e3)
+
+
+def timed_request(synth, feats: np.ndarray, head_batch: int = 0):
+    """One streamed request of ``feats`` through ``synth`` with a first
+    batch of ``head_batch`` rows (0: none): (frames, wall seconds,
+    seconds to the first frame, the head batch taken)."""
+    head_batch = synth.set_first_batch_size(head_batch)
+    frames, first = [], None
+    t0 = time.perf_counter()
+    for item in synth.iterate_synthesized_frames(feats):
+        if first is None:
+            first = time.perf_counter() - t0
+        frames.append(item)
+    return frames, time.perf_counter() - t0, first, head_batch
+
+
+def multistream_ticks(ms, ticks: list):
+    """MultiStreamSynthesizer ``ms`` over ``ticks`` (each {stream id:
+    window of feature rows}): each tick's frames, wall seconds and seconds
+    to its first composited frame."""
+    first = {}
+    saved = [(spk, spk._paste_back) for spk in ms._speakers]
+    for spk, inner in saved:
+        def paste(pred, entry, _inner=inner):
+            first.setdefault("t", time.perf_counter())
+            return _inner(pred, entry)
+
+        spk._paste_back = paste
+    outs, walls, firsts = [], [], []
+    try:
+        for tick in ticks:
+            first.clear()
+            t0 = time.perf_counter()
+            outs.append(ms.synthesize_windows(tick))
+            walls.append(time.perf_counter() - t0)
+            firsts.append(first["t"] - t0)
+    finally:
+        for spk, inner in saved:
+            spk._paste_back = inner
+    return outs, walls, firsts

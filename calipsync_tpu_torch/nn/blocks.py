@@ -7,8 +7,9 @@ Tensors inside the model are NCHW in ``torch.channels_last`` memory, so
 copy. Parameters stay fp32; the compute dtype is the input's.
 
 In eval mode each block folds its BatchNorms into the conv weights once per
-dtype (cleared on ``train()``/``eval()``, ``to()`` and state_dict loads) and
-runs its kernels:
+dtype (cleared on ``train()``/``eval()``, ``to()`` and state_dict loads;
+under ``torch.export`` the fold is traced, not cached) and runs its
+kernels, the ``calipsync::`` ops of ``kernels/``:
 
   - stride-1 inverted residuals at H*W >= 40*40 run whole in the fused
     kernel (``kernels/fused_ir.py``), the gate of the JAX model
@@ -40,7 +41,7 @@ from calipsync_tpu_torch.kernels.cross_attention import cross_attention_plain
 from calipsync_tpu_torch.kernels.depthwise import (depthwise3x3_plain,
                                                    fold_bn)
 from calipsync_tpu_torch.kernels.fused_ir import (
-    fold_ir_params, fused_inverted_residual_plain)
+    as_fp32, fold_ir_params, fused_inverted_residual_plain)
 
 LEAKY_SLOPE = 0.01
 BN_EPS = 1e-5
@@ -201,14 +202,22 @@ class InvertedResidual(nn.Module):
         w1, b1, kd, bd, w2, b2 = fold_ir_params(*stages)
         dw_scale, dw_shift = fold_bn(*stages[1][1:], eps=BN_EPS)
         ch = w1.shape[1]
+
+        def cast(t):  # no cast where there is none to make
+            return t if t.dtype == dtype else t.to(dtype)
+
         return SimpleNamespace(
-            fused=(w1.to(dtype), b1, kd.to(dtype), bd, w2.to(dtype), b2),
-            w1=w1.t()[:, :, None, None].to(dtype), b1=b1.to(dtype),
-            taps=c[3].weight.float().reshape(ch, 9).t().contiguous(),
+            fused=(cast(w1), b1, cast(kd), bd, cast(w2), b2),
+            w1=cast(w1.t()[:, :, None, None]), b1=cast(b1),
+            taps=as_fp32(c[3].weight).reshape(ch, 9).t().contiguous(),
             dw_scale=dw_scale, dw_shift=dw_shift,
-            w2=w2.t()[:, :, None, None].to(dtype), b2=b2.to(dtype))
+            w2=cast(w2.t()[:, :, None, None]), b2=cast(b2))
 
     def folded(self, dtype: torch.dtype) -> SimpleNamespace:
+        if torch.compiler.is_exporting():
+            # traced from the parameters: an exported program folds the
+            # weights it holds, never folds an eager forward cached
+            return self._fold(dtype)
         f = self._folds.get(dtype)
         if f is None:
             with torch.no_grad():

@@ -19,6 +19,11 @@ and every producer session run on one thread of the manager's
 cuDNN's execution plans per host thread, so a fresh thread's first window
 would pay for building them. That thread runs one thing at a time, so
 ``warmup`` and ``start_playing`` raise while a session's producer runs.
+
+The producer records into the process metrics (``metrics.py``) under the
+JAX package's names: the ``serve.synthesis_window`` timing, the
+``serve.frames`` and ``serve.producer_errors`` counters and the
+``serve.player_buffer`` gauge.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 
 from calipsync_tpu_torch.audio.io import load_audio, save_wav
 from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
+from calipsync_tpu_torch.metrics import global_metrics
 
 
 @dataclass
@@ -323,24 +329,30 @@ class StreamingVideoManager:
                 if first:
                     self.ttf_marks["collected"] = time.monotonic()
 
+                m = global_metrics()
                 feats = np.stack([b.hubert_feature for b in batch])
                 # a stop starts no further device batch of the window, so
                 # stop_playing and close wait for one batch at most
-                for i, info in enumerate(
-                        self.synthesizer.iterate_synthesized_frames(
-                            feats, last_frame_index, sync,
-                            should_stop=self._stopping)):
-                    if self._stopping():
-                        break  # stop_playing mid-window: exit promptly
-                    if first:
-                        self.ttf_marks["synth_first"] = time.monotonic()
-                    if i < len(batch):
-                        info["audio"] = batch[i].original_audio_chunk
-                        self.player.upload_frame(info)
-                        self.frames_uploaded += 1
+                with m.time("serve.synthesis_window"):
+                    for i, info in enumerate(
+                            self.synthesizer.iterate_synthesized_frames(
+                                feats, last_frame_index, sync,
+                                should_stop=self._stopping)):
+                        if self._stopping():
+                            break  # stop_playing mid-window: exit promptly
                         if first:
-                            self.ttf_marks["uploaded"] = time.monotonic()
-                            first = False
+                            self.ttf_marks["synth_first"] = time.monotonic()
+                        if i < len(batch):
+                            info["audio"] = batch[i].original_audio_chunk
+                            self.player.upload_frame(info)
+                            self.frames_uploaded += 1
+                            if first:
+                                self.ttf_marks["uploaded"] = \
+                                    time.monotonic()
+                                first = False
+                            m.count("serve.frames")
+                m.gauge("serve.player_buffer",
+                        self.player.get_queue_length())
             except Exception as e:
                 # Catch-and-backoff keeps the stream alive through transient
                 # synthesis/IO failures (reference infer_api.py:309-315);
@@ -348,6 +360,7 @@ class StreamingVideoManager:
                 self.producer_errors += 1
                 print(f"stream producer error: {e}")
                 traceback.print_exc()
+                global_metrics().count("serve.producer_errors")
                 time.sleep(self.error_backoff_s)
 
     # ------------- lifecycle -------------

@@ -103,8 +103,9 @@ then, on the card and with no fallback anywhere:
      FSV1 encode alone at each size; (b) ``python -m
      calipsync_tpu_torch.cli serve --player rtmp`` in a subprocess on
      6d's checkpoints, a 1 s wav dropped into --watch, SIGINT once its
-     frames and 3 more are captured, the capture checked; (c) the ffmpeg
-     backend, where the machine has ffmpeg.
+     frames and 3 more are captured, the capture checked, and the metrics
+     its calipsync.serve log shows on stop (serve.frames = the frames
+     uploaded); (c) the ffmpeg backend, where the machine has ffmpeg.
  10. evaluation, seeded SyncNet / VGG16 / AlexNet / LPIPS-head weights in
      the reference layouts: (a) SyncNet, card (TF32 flag on and off)
      against the CPU: the embeddings of step 3's lip crops at B=64 within
@@ -119,9 +120,26 @@ then, on the card and with no fallback anywhere:
      generator_parity_report: the serving generator (kernels) in bf16
      and fp32 against the fp32 plain generator on the CPU (fp32 >= 60
      dB).
+ 11. tools: (a) ``cli cost`` at B=1 and 128, card against --device cpu
+     (subprocesses), equal to the integer, and one count in process
+     through the kernels; (b) the full-width generator exported with
+     torch.export on the card (bf16 B=128, fp32 B=8), saved, loaded and
+     run in a fresh subprocess: 9/17/4 launches a forward, fp32 within
+     the repo's bar of eager, bf16 equal to eager, the three kernels in a
+     profiling.trace of one loaded forward, export / load seconds and
+     the loaded forward's ms against eager; (c) the CTC recognizer at
+     wav2vec2-base-960h's width (bench_assets.write_ctc_dir, its head
+     planted on a 30 s speech-like clip by bench_assets.planted_ctc):
+     card logits against the CPU, the least top-2 margin 10x the largest
+     difference, spans equal, ``cli slice --asr`` card against CPU, ms a
+     clip and the real-time factor; (d) ``cli verify-weights`` over every
+     seeded file (face weights with YOLO, generator, SyncNet, HuBERT-large,
+     LPIPS, the recognizer), card against CPU, all ok; (e) LegacyLandmark
+     with the seeded YOLOv8n-face keypoints and PFLD, card against CPU
+     within 1 px, ms a frame.
 
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d, 8c, 9a, 9b, 10e) reads the launch counters, set to 0 just before
+7c, 7d, 8c, 9a, 9b, 10e, 11a, 11b) reads the launch counters, set to 0 just before
 it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
 attention is the kernel).
@@ -410,7 +428,9 @@ def serve(torch, timer):
         FrameSynthesizer, make_generate_resident_fn)
 
     from calipsync_tpu_torch.kernels.measure import (EXPECTED_PER_FORWARD,
-                                                     random_generator)
+                                                     compute_only_fps,
+                                                     random_generator,
+                                                     timed_request)
 
     model = random_generator(torch.bfloat16)
     feats = np.random.default_rng(3).standard_normal(
@@ -428,16 +448,8 @@ def serve(torch, timer):
         n_batches = 0
         kernels.reset_launches()
         for fmt, head_batch in requests:
-            synth = synths[fmt]
-            head_batch = synth.set_first_batch_size(head_batch)
-            t0 = time.perf_counter()
-            first = None
-            frames = []
-            for item in synth.iterate_synthesized_frames(feats):
-                if first is None:
-                    first = time.perf_counter() - t0
-                frames.append(item)
-            wall = time.perf_counter() - t0
+            frames, wall, first, head_batch = timed_request(
+                synths[fmt], feats, head_batch)
             n_batches += (1 if head_batch else 0) + -(
                 -(FEATURE_ROWS - head_batch) // BATCH)
             check(len(frames) == FEATURE_ROWS
@@ -465,26 +477,20 @@ def serve(torch, timer):
         # compute-only: the resident device step alone, and one batch of
         # it held against the plain versions
         synth = synths["bgr"]
-        step = synth._generate_resident_fns["bgr"]
         dev = synth.device
         feats_dev = torch.from_numpy(feats).to(dev).to(model.dtype)
-        phys = torch.arange(BATCH, device=dev) % synth.total_frames
-        idx = [torch.arange(i, i + BATCH, device=dev)
-               for i in range(0, FEATURE_ROWS, BATCH)]
-
-        def all_batches():
-            for fi in idx:
-                step(synth._crops_dev, phys, feats_dev, fi)
-
-        ms = timer.ms(all_batches, warmup=1, reps=3)
-        metrics["compute_only_fps"] = FEATURE_ROWS / (ms / 1e3)
+        metrics["compute_only_fps"] = compute_only_fps(synth, feats_dev,
+                                                       timer)
         print(f"compute-only (device step, bgr, B={BATCH}): "
               f"{metrics['compute_only_fps']:.2f} fps")
-        rows = step(synth._crops_dev, phys, feats_dev, idx[0])
+        phys = torch.arange(BATCH, device=dev) % synth.total_frames
+        idx = torch.arange(BATCH, device=dev)
+        rows = synth._generate_resident_fns["bgr"](synth._crops_dev, phys,
+                                                   feats_dev, idx)
         plain_step = make_generate_resident_fn(
             random_generator(torch.bfloat16, ops="plain"),
             synth.crop, "bgr")
-        ref = plain_step(synth._crops_dev, phys, feats_dev, idx[0])
+        ref = plain_step(synth._crops_dev, phys, feats_dev, idx)
         lsb = (rows.int() - ref.int()).abs()
         print(f"serving step bgr: kernels vs plain max {lsb.max().item()} "
               f"LSB, {(lsb > 1).float().mean().item():.3g} of values "
@@ -1802,7 +1808,8 @@ def multistream_phase(torch, speakers, seed: int, out: dict) -> dict:
     of its walk; one tick under torch.profiler."""
     from calipsync_tpu_torch import kernels
     from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
-    from calipsync_tpu_torch.kernels.measure import random_generator
+    from calipsync_tpu_torch.kernels.measure import (multistream_ticks,
+                                                     random_generator)
     from calipsync_tpu_torch.serve.multi_stream import MultiStreamSynthesizer
 
     model = random_generator(torch.bfloat16)
@@ -1818,21 +1825,11 @@ def multistream_phase(torch, speakers, seed: int, out: dict) -> dict:
                                     batch_size=BATCH, transfer_format=fmt)
         for i, sid in enumerate(ids):
             ms.add_stream(sid, speaker=i % 2)
-        first = {}
-        for spk in ms._speakers:  # the tick's first composited frame
-            def paste(pred, entry, _inner=spk._paste_back):
-                first.setdefault("t", time.perf_counter())
-                return _inner(pred, entry)
-            spk._paste_back = paste
         outs = [ms.synthesize_windows(ticks[0])]  # warm-up
         kernels.reset_launches()
-        walls, firsts = [], []
-        for tick in ticks[1:MS_TICKS + 1]:
-            first.clear()
-            t0 = time.perf_counter()
-            outs.append(ms.synthesize_windows(tick))
-            walls.append(time.perf_counter() - t0)
-            firsts.append(first["t"] - t0)
+        timed, walls, firsts = multistream_ticks(ms,
+                                                 ticks[1:MS_TICKS + 1])
+        outs += timed
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         expect_forwards(counts, f"multistream {fmt}", MS_TICKS * per_tick)
@@ -2290,7 +2287,8 @@ class _Lines:
         """Wait for the end of the stream (the process has exited)."""
         self._t.join(timeout=30)
 
-    def wait_for(self, prefix: str, timeout: float) -> str:
+    def wait_for(self, text: str, timeout: float) -> str:
+        """The next line that holds ``text``."""
         import queue
 
         deadline = time.monotonic() + timeout
@@ -2299,9 +2297,9 @@ class _Lines:
                 line = self._q.get(timeout=max(0.0, deadline
                                                - time.monotonic()))
             except queue.Empty:
-                raise SmokeFailure(f"no line starting {prefix!r} in "
+                raise SmokeFailure(f"no line holding {text!r} in "
                                    f"{timeout} s: {self.lines[-5:]}")
-            if line.startswith(prefix):
+            if text in line:
                 return line
 
 
@@ -2319,23 +2317,25 @@ def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
         json.dump({"model": {"dtype": "bfloat16"}}, f)
     wav = os.path.join(tmp, "clip.wav")
     save_wav(wav, tone_wav(SERVE_WAV_SECONDS, seed + 61), 16_000)
-    with Ingest(os.path.join(tmp, "serve.flv")) as server, \
-            open(os.path.join(tmp, "serve.err"), "w+") as errf:
+    with Ingest(os.path.join(tmp, "serve.flv")) as server:
         cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "serve",
                "--assets", assets["data"], "--ckpt", assets["ckpt"],
                "--hubert", assets["hubert"], "--config", cfg, "--player",
                "rtmp", "--rtmp-url", server.url, "--watch", watch]
         t0 = time.perf_counter()
+        # the serve log (stderr, the calipsync.serve logger) and the JSON
+        # summary (stdout) in one stream
         proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=errf, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
             lines = _Lines(proc.stdout)
-            lines.wait_for("serving;", 600)
+            lines.wait_for("calipsync.serve INFO serving;", 600)
             ready_s = time.perf_counter() - t0
             # the serve loop polls every 0.2 s: the file appears whole
             os.replace(wav, os.path.join(watch, "clip.wav"))
-            queued = lines.wait_for("queued clip.wav", 60)
+            queued = lines.wait_for("calipsync.serve INFO queued clip.wav",
+                                    60)
             n = int(queued.rsplit("(", 1)[1].split()[0])
             target = server.n_video.value + n + SERVE_IDLE_FRAMES
             deadline = time.monotonic() + SERVE_WAV_SECONDS + 60
@@ -2351,12 +2351,16 @@ def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
                 proc.wait()
         lines.join()
         if proc.returncode:
-            errf.seek(0)
-            print("\n".join(lines.lines[-20:]), errf.read()[-4000:],
-                  file=sys.stderr)
+            print("\n".join(lines.lines[-40:]), file=sys.stderr)
         check(proc.returncode == 0, f"cli serve exited {proc.returncode}")
         server.finish()
-    res = json.loads(lines.lines[-1])
+    res = _last_json("\n".join(lines.lines))
+    stop = next(line for line in lines.lines
+                if "calipsync.serve INFO stopping; metrics: " in line)
+    snapshot = json.loads(stop.split("metrics: ", 1)[1])
+    check(snapshot["counters"].get("serve.frames") == res["frames_uploaded"]
+          and "serve.synthesis_window" in snapshot["timings"],
+          f"cli serve: metrics {snapshot} against {res}")
     cap = check_capture(server.capture_path, "cli serve --player rtmp",
                         (SERVE_W, SERVE_H))
     check(cap["video_tags"] >= n + SERVE_IDLE_FRAMES,
@@ -2369,8 +2373,10 @@ def live_cli_phase(torch, assets, seed, out, tmp) -> dict:
     print(f"cli serve --player rtmp (subprocess, {wall:.1f} s; serving "
           f"{ready_s:.1f} s after start, HuBERT-large loaded and warmed "
           f"up): {res}")
+    print(f"cli serve metrics on stop: {snapshot['counters']}, synthesis "
+          f"window {snapshot['timings']['serve.synthesis_window']}")
     out["live_cli"] = dict(wall_s=wall, ready_s=ready_s, queued=n,
-                           result=res, **cap)
+                           result=res, metrics=snapshot, **cap)
     return res["kernel_launches"]
 
 
@@ -2760,6 +2766,470 @@ def evaluation(torch, assets, clone, seed, out, tmp) -> dict:
         return {"parity": parity_phase(torch, out)}
 
 
+# ---------------------------------------------------------------- tools
+
+ASR_SECONDS = 30.0       # the recognizer's clip, speech-like bursts
+ASR_MARGIN_RATIO = 10.0  # least top-2 margin over the card-CPU difference
+EXPORT_FP32_BATCH = 8
+LEGACY_FRAMES = 2        # 8b's video frames, ~85 faces each
+
+
+class _Job:
+    """A subprocess from the repo's root, its stdout and stderr to
+    ``log_path``; ``seconds`` is its wall time once it has ended (a thread
+    waits for it)."""
+
+    def __init__(self, argv, log_path: str, env=None):
+        import threading
+
+        self.log_path = log_path
+        self.seconds = None
+        with open(log_path, "w") as log:
+            self.t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                argv, stdout=log, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+        threading.Thread(target=self._wait, daemon=True).start()
+
+    def _wait(self):
+        self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, what: str, timeout: float) -> str:
+        """Wait for the end (killed at ``timeout``), check the exit code
+        and return the output."""
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        with open(self.log_path) as f:
+            text = f.read()
+        if self.proc.returncode:
+            print(text[-4000:], file=sys.stderr)
+        check(self.proc.returncode == 0,
+              f"{what} exited {self.proc.returncode}")
+        while self.seconds is None:  # the waiting thread's last step
+            time.sleep(0.01)
+        return text
+
+
+def _cli(args) -> list:
+    return [sys.executable, "-m", "calipsync_tpu_torch.cli", *args]
+
+
+def _last_json(text: str):
+    for line in reversed(text.strip().splitlines()):
+        try:
+            return json.loads(line)
+        except json.JSONDecodeError:
+            continue
+    raise SmokeFailure(f"no JSON line in: {text[-400:]}")
+
+
+def start_cpu_costs(tmp) -> dict:
+    """``cli cost --device cpu`` at B=1 and B=BATCH in subprocesses on two
+    threads each, started first: they run beside 11a-11e and are read by
+    :func:`check_costs`."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return {b: _Job(_cli(["cost", "--batch", str(b), "--device", "cpu"]),
+                    os.path.join(tmp, f"cost_cpu_{b}.log"), env)
+            for b in (1, BATCH)}
+
+
+def cost_phase(torch, tmp, out) -> dict:
+    """(11a) ``cli cost`` at B=1 and BATCH in subprocesses on the card,
+    and one count in process on the card for the launch counters (an fp32
+    forward: 9/17/4). The CPU subprocesses' counts
+    (:func:`start_cpu_costs`) are read at the end of phase 11
+    (:func:`check_costs`)."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.profiling import generator_cost
+
+    jobs = {b: _Job(_cli(["cost", "--batch", str(b)]),
+                    os.path.join(tmp, f"cost_cuda_{b}.log"))
+            for b in (1, BATCH)}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    one = generator_cost(batch=1)
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expect_forwards(counts, "cost (in process, fp32 B=1)", 1)
+    res = out["cost"] = dict(raw_b1=one["raw"], in_process_s=inproc_s,
+                             flops_in_process_b1=one["flops"], cuda={},
+                             subprocess_s={})
+    for b, job in jobs.items():
+        text = job.finish(f"cli cost --batch {b}", 600)
+        res["subprocess_s"][f"cuda_{b}"] = job.seconds
+        res["cuda"][b] = round(float(_last_json(text)) * 1e9)
+    check(one["flops"] == res["cuda"][1],
+          f"cost: {one['flops']} in process, {res['cuda'][1]} by the CLI")
+    return counts
+
+
+def check_costs(cpu_jobs: dict, out) -> None:
+    """(11a, its end) The CPU subprocesses' counts equal the card's to the
+    integer."""
+    res = out["cost"]
+    cpu = {}
+    for b, job in cpu_jobs.items():
+        text = job.finish(f"cli cost --batch {b} --device cpu", 900)
+        res["subprocess_s"][f"cpu_{b}"] = job.seconds
+        cpu[b] = round(float(_last_json(text)) * 1e9)
+    check(cpu == res["cuda"], f"cost: card {res['cuda']}, CPU {cpu}")
+    print(f"cost: {cpu[1]} FLOP at B=1 ({cpu[1] / 1e9:.6f} GFLOP), "
+          f"{cpu[BATCH]} at B={BATCH}, card = CPU to the integer; per op "
+          f"at B=1: {res['raw_b1']}; in process "
+          f"{res['in_process_s']:.2f} s, subprocess walls "
+          f"{ {k: round(v, 1) for k, v in res['subprocess_s'].items()} }")
+    res["cpu"] = cpu
+
+
+def run_exported(directory: str) -> int:
+    """The child of 11b (``chip_smoke.py --run-exported DIR``): loads the
+    exported programs in a fresh process (the import of the port alone
+    registers the ops), runs each on its saved inputs with the launch
+    counters read a forward, times it, saves its outputs, and traces one
+    bf16 forward with profiling.trace. Prints one JSON line."""
+    import torch
+
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.export import kernel_nodes, load_program
+    from calipsync_tpu_torch.kernels.measure import Timer
+    from calipsync_tpu_torch.profiling import trace
+
+    timer = Timer()
+    # fp32 in fp32, as the parent's eager reference: cuDNN's TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    res, progs = {}, {}
+    for name in ("bf16", "fp32"):
+        t0 = time.perf_counter()
+        prog = progs[name] = load_program(os.path.join(directory,
+                                                       f"{name}.pt2"))
+        load_s = time.perf_counter() - t0
+        x, a = torch.load(os.path.join(directory, f"{name}_in.pt"))
+        per_forward = []
+        with torch.inference_mode():
+            for _ in range(2):
+                kernels.reset_launches()
+                y = prog(x, a)
+                torch.cuda.synchronize()
+                per_forward.append(kernels.launch_counts())
+            ms = timer.ms(lambda: prog(x, a), warmup=1, reps=5)
+        torch.save(y.cpu(), os.path.join(directory, f"{name}_out.pt"))
+        res[name] = dict(load_s=load_s, launches=per_forward, ms=ms,
+                         nodes=kernel_nodes(prog))
+    x, a = torch.load(os.path.join(directory, "bf16_in.pt"))
+    with torch.inference_mode(), trace(os.path.join(directory,
+                                                    "trace")) as prof:
+        progs["bf16"](x, a)
+        torch.cuda.synchronize()
+    res["trace"] = prof.trace_path
+    print(json.dumps(res))
+    return 0
+
+
+def _trace_kernels(path: str) -> dict:
+    """For each ``calipsync::`` op event of a Chrome trace: the CUDA kernels
+    launched inside its span (matched by correlation id); returns
+    {op name: [kernel names of each call]}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"]["correlation"]: e["name"] for e in events
+               if e.get("cat") == "kernel" and "args" in e}
+    launches = [(e["ts"], e["args"].get("correlation")) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "args" in e]
+    calls = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e["name"].startswith("calipsync::"):
+            inside = [kernels[c] for ts, c in launches
+                      if e["ts"] <= ts <= e["ts"] + e["dur"] and c in kernels]
+            calls.setdefault(e["name"], []).append(inside)
+    return calls
+
+
+def export_phase(torch, tmp, out) -> dict:
+    """(11b) The full-width generator exported on the card, bf16 at B=128
+    and fp32 at B=8, saved, then loaded and run in a fresh subprocess:
+    9/17/4 launches a forward, fp32 within the repo's bar of eager, bf16
+    equal to eager (else held to the bf16 bar against eager), one loaded
+    forward traced with its three kernels in it. Eager and loaded run
+    with cuDNN's TF32 off, so fp32 is fp32 on both sides."""
+    from calipsync_tpu_torch.export import export_generator, kernel_nodes
+    from calipsync_tpu_torch.kernels.measure import (EXPECTED_PER_FORWARD,
+                                                     Timer,
+                                                     generator_inputs,
+                                                     random_generator)
+
+    directory = os.path.join(tmp, "export")
+    os.makedirs(directory)
+    timer = Timer()
+    res = out["export"] = {}
+    eager = {}
+    for name, dtype, batch in (("bf16", torch.bfloat16, BATCH),
+                               ("fp32", torch.float32, EXPORT_FP32_BATCH)):
+        model = random_generator(dtype)
+        x, a = generator_inputs(batch, seed=11)
+        # the child runs with cuDNN's TF32 off too: fp32 is compared in fp32
+        with torch.inference_mode(), cudnn_tf32_flag(torch, False):
+            eager[name] = model(x, a).float().cpu()   # the folds cached
+            eager_ms = timer.ms(lambda: model(x, a), warmup=1, reps=5)
+        t0 = time.perf_counter()
+        path = export_generator(model, os.path.join(directory,
+                                                    f"{name}.pt2"), batch)
+        export_s = time.perf_counter() - t0
+        nodes = kernel_nodes(torch.export.load(path))
+        check(nodes == {"fused_ir": 9, "depthwise3x3": 17,
+                        "cross_attention": 4},
+              f"export {name}: calipsync nodes {nodes}")
+        torch.save((x, a), os.path.join(directory, f"{name}_in.pt"))
+        res[name] = dict(batch=batch, export_s=export_s, eager_ms=eager_ms,
+                         nodes=nodes, bytes=os.path.getsize(path))
+        del model
+    job = _Job([sys.executable, os.path.abspath(__file__), "--run-exported",
+                directory], os.path.join(tmp, "run_exported.log"))
+    child = _last_json(job.finish("the exported programs' subprocess", 900))
+    res["subprocess_s"] = job.seconds
+    for name in ("bf16", "fp32"):
+        r = child[name]
+        for counts in r["launches"]:
+            check(counts == EXPECTED_PER_FORWARD,
+                  f"loaded {name} program: launches {counts} a forward")
+        got = torch.load(os.path.join(directory, f"{name}_out.pt")).float()
+        diff = (got - eager[name]).abs().max().item()
+        if name == "fp32":
+            ok = torch.allclose(got, eager[name], rtol=GEN_FP32_TOL[2],
+                                atol=GEN_FP32_TOL[0])
+            check(ok, f"loaded fp32 program vs eager: max {diff}")
+        elif diff:
+            print(f"loaded bf16 program vs eager: max {diff} (not "
+                  "identical); held to the bf16 bar")
+            bf16_against_plain(got, eager[name], "loaded bf16 program")
+        res[name].update(r, max_abs_vs_eager=diff)
+        print(f"export {name} B={res[name]['batch']}: export "
+              f"{res[name]['export_s']:.2f} s, load {r['load_s']:.2f} s "
+              f"(fresh process), forward {r['ms']:.3f} ms against eager "
+              f"{res[name]['eager_ms']:.3f}, max |loaded - eager| {diff}, "
+              f"launches {r['launches'][0]}, nodes {r['nodes']}")
+    calls = _trace_kernels(child["trace"])
+    launches = child["bf16"]["launches"][0]
+    for op, n in (("calipsync::fused_ir", 9), ("calipsync::depthwise3x3", 17),
+                  ("calipsync::cross_attention", 4)):
+        check(len(calls.get(op, [])) == n
+              and all(any(k.startswith("void calipsync::")
+                          or "calipsync::" in k for k in ks)
+                      for ks in calls[op]),
+              f"trace: {op} calls {len(calls.get(op, []))}, kernels "
+              f"{calls.get(op, [])[:2]}")
+    names = {op: sorted({k.replace("(anonymous namespace)::", "")
+                         .split("(")[0][:90] for ks in c for k in ks
+                         if "calipsync::" in k}) for op, c in calls.items()}
+    print(f"trace of a loaded bf16 forward: {names}")
+    res["trace_kernels"] = names
+    return launches
+
+
+def asr_phase(torch, tmp, seed, out) -> str:
+    """(11c) The CTC recognizer at the width of wav2vec2-base-960h
+    (bench_assets.write_ctc_dir) on a 30 s speech-like clip, its head
+    planted on the CPU (bench_assets.planted_ctc); the card's logits
+    against the CPU's within HUBERT_CPU_TOL, the least top-2 margin at
+    least ASR_MARGIN_RATIO times the largest card-CPU difference, the
+    spans equal, and ``cli slice --asr`` on the card and with --device cpu
+    (subprocesses, side by side) writing the same segments. Returns the
+    recognizer's directory."""
+    from calipsync_tpu_torch.audio.asr import (greedy_ctc_spans,
+                                               load_hf_ctc_checkpoint)
+    from calipsync_tpu_torch.audio.io import save_wav
+    from calipsync_tpu_torch.audio.slicer import sentences_from_spans
+    from calipsync_tpu_torch.bench_assets import (planted_ctc,
+                                                  speech_like_wav,
+                                                  write_ctc_dir)
+    from calipsync_tpu_torch.kernels.measure import max_err
+
+    res = out["asr"] = {}
+    path = write_ctc_dir(os.path.join(tmp, "ctc"), seed=seed)
+    wav = speech_like_wav(ASR_SECONDS, seed + 71)
+    wav_path = os.path.join(tmp, "speech30.wav")
+    save_wav(wav_path, wav, 16_000)
+    t0 = time.perf_counter()
+    plant = planted_ctc(path, wav)
+    res["plant_cpu_s"] = time.perf_counter() - t0
+    jobs = {dev: _Job(_cli(["slice", "--audio", wav_path, "--out",
+                            os.path.join(tmp, f"slice_{dev}"), "--asr", path,
+                            "--device", dev]),
+                      os.path.join(tmp, f"slice_{dev}.log"))
+            for dev in ("cpu", "cuda")}
+    rec = load_hf_ctc_checkpoint(path)
+    card = rec.logits(wav)
+    cpu = plant["logits"]
+    err, ok = max_err(torch.from_numpy(card), torch.from_numpy(cpu),
+                      HUBERT_CPU_TOL)
+    top2 = np.sort(cpu, axis=-1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    print(f"ASR logits ({card.shape[0]} frames x {card.shape[1]}): card vs "
+          f"CPU max {err:.3g}; least top-2 margin {margin:.4g} = "
+          f"{margin / max(err, 1e-30):.3g} x the difference")
+    check(ok, f"ASR logits: card vs CPU max {err}")
+    check(margin >= ASR_MARGIN_RATIO * err,
+          f"ASR: least margin {margin} under {ASR_MARGIN_RATIO} x {err}")
+    spans = rec.recognize(wav)
+    want = sentences_from_spans(greedy_ctc_spans(
+        cpu.argmax(-1), rec.id_to_token, rec.frame_dt, rec.blank_id,
+        rec.word_delimiter, max_word_gap_s=None))
+    check(spans == want, "ASR spans: card and CPU differ")
+    check(len(spans) >= 5 and all(t for _, _, t in spans),
+          f"ASR: the planted decode gives {len(spans)} spans")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rec.logits(wav)
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    print(f"ASR: {len(spans)} spans, {ms:.1f} ms a {ASR_SECONDS:.0f} s clip "
+          f"(real-time factor {ms / 1e3 / ASR_SECONDS:.4f}); first span "
+          f"{spans[0][:2]} {spans[0][2][:40]!r}")
+    segs = {}
+    for dev, job in jobs.items():
+        segs[dev] = _last_json(job.finish(f"cli slice --asr --device {dev}",
+                                          600))
+        res[f"slice_{dev}_s"] = job.seconds
+    n = segs["cuda"]["segments"]
+    check(segs["cuda"] == segs["cpu"] and n >= 2, f"cli slice: {segs}")
+    for i in range(n + 1):
+        for ext in ("wav", "txt"):
+            a, b = (os.path.join(tmp, f"slice_{d}", f"{i}.{ext}")
+                    for d in ("cuda", "cpu"))
+            check(os.path.exists(a) == os.path.exists(b)
+                  and (not os.path.exists(a)
+                       or open(a, "rb").read() == open(b, "rb").read()),
+                  f"cli slice: {i}.{ext} differs between card and CPU")
+    print(f"cli slice --asr: {n} segments, card and CPU the same files; "
+          f"{res['slice_cuda_s']:.1f} s on the card, "
+          f"{res['slice_cpu_s']:.1f} s on the CPU (subprocesses, side by "
+          "side)")
+    res.update(frames=int(card.shape[0]), max_abs_card_cpu=err,
+               min_margin=margin, spans=len(spans), ms_per_clip=ms,
+               real_time_factor=ms / 1e3 / ASR_SECONDS, segments=n)
+    return path
+
+
+def verify_phase(tmp, paths: dict, out) -> None:
+    """(11d) ``cli verify-weights`` over every seeded file the script wrote,
+    on the card and with --device cpu (side by side): every status ok,
+    exit 0, the same JSON."""
+    argv = []
+    for flag, key in (("--weights-dir", "face"), ("--generator", "ckpt"),
+                      ("--syncnet", "syncnet"), ("--hubert", "hubert"),
+                      ("--lpips-trunk", "vgg_trunk"),
+                      ("--lpips-heads", "vgg_heads"), ("--asr", "ctc")):
+        argv += [flag, paths[key]]
+    jobs = {dev: _Job(_cli(["verify-weights", *argv, "--device", dev]),
+                      os.path.join(tmp, f"verify_{dev}.log"))
+            for dev in ("cuda", "cpu")}
+    reports, walls = {}, {}
+    for dev, job in jobs.items():
+        text = job.finish(f"cli verify-weights --device {dev}", 600)
+        walls[dev] = job.seconds
+        reports[dev] = json.loads(text[text.index("["):])
+    card = reports["cuda"]
+    check(card == reports["cpu"], "verify-weights: card and CPU differ")
+    check(len(card) == 9 and all(r["status"] == "ok" for r in card),
+          f"verify-weights: {[(r['artifact'], r['status']) for r in card]}")
+    print(f"cli verify-weights: {len(card)} artifacts ok, card = CPU; "
+          f"{walls['cuda']:.1f} s on the card, {walls['cpu']:.1f} s on the "
+          "CPU: " + ", ".join(f"{r['artifact']} {r.get('imported_params')}"
+                              for r in card))
+    out["verify_weights"] = dict(walls_s=walls, reports=card)
+
+
+def legacy_phase(torch, tmp, seed, face_dir, out) -> None:
+    """(11e) LegacyLandmark on 8b's synthetic video's first frames, the
+    seeded YOLOv8n-face (every stride-16 anchor fires; its keypoints from
+    random weights) and PFLD, card against CPU: the same faces, roll
+    angles within 1e-3 degree, landmarks within 1 px; ms a frame."""
+    from calipsync_tpu_torch.bench_assets import make_synthetic_video
+    from calipsync_tpu_torch.cli import build_lip_detector
+    from calipsync_tpu_torch.core.weights import load_torch_state_dict
+    from calipsync_tpu_torch.nn.yolo import YoloV8FaceDetector
+    from calipsync_tpu_torch.vision.legacy_landmark import LegacyLandmark
+
+    frames = read_frames(make_synthetic_video(
+        os.path.join(tmp, "legacy.mp4"), LEGACY_FRAMES, 480,
+        seed=seed + 30), LEGACY_FRAMES)
+    yolo_sd = load_torch_state_dict(os.path.join(
+        face_dir, "yolov8n_face_state_dict.pth"))
+    results, ms = {}, None
+    for dev in ("cpu", "cuda"):
+        lip = build_lip_detector(face_dir, device=dev)
+        try:
+            legacy = LegacyLandmark(lip, YoloV8FaceDetector(
+                yolo_sd, batch_size=16, device=dev))
+            legacy.landmarks(frames[0])  # warm-up
+            t0 = time.perf_counter()
+            results[dev] = [legacy.landmarks(f) for f in frames]
+            if dev == "cuda":
+                ms = (time.perf_counter() - t0) / len(frames) * 1e3
+        finally:
+            lip.close()
+    faces = [len(r) for r in results["cuda"]]
+    check(faces == [len(r) for r in results["cpu"]] and min(faces) > 0,
+          f"legacy landmark: faces {faces} vs "
+          f"{[len(r) for r in results['cpu']]}")
+    px = angle = 0.0
+    for a_frame, b_frame in zip(results["cuda"], results["cpu"]):
+        for (pa, aa), (pb, ab) in zip(a_frame, b_frame):
+            px = max(px, float(np.abs(pa.astype(int) - pb).max()))
+            angle = max(angle, abs(aa - ab))
+    check(px <= 1 and angle <= 1e-3,
+          f"legacy landmark: card vs CPU {px} px, {angle} degrees")
+    print(f"legacy landmark: {sum(faces)} faces over {len(frames)} frames, "
+          f"card vs CPU max {px:.0f} px, roll {angle:.2g} deg; "
+          f"{ms:.1f} ms a frame on the card ({ms / faces[0]:.2f} ms a "
+          "face)")
+    out["legacy_landmark"] = dict(faces=faces, max_px=px, max_roll_deg=angle,
+                                  ms_per_frame=ms)
+
+
+def tools(torch, assets, seed, out, tmp) -> dict:
+    """Phases (11a)-(11e); returns the launch counts of the cost and
+    export paths."""
+    from calipsync_tpu_torch.bench_assets import (write_eval_weights,
+                                                  write_face_weights)
+
+    os.makedirs(tmp)
+    paths = {}
+    cpu_costs = start_cpu_costs(tmp)
+    try:
+        with phase("11a cost"):
+            paths["cost"] = cost_phase(torch, tmp, out)
+        with phase("11b export"):
+            paths["export"] = export_phase(torch, tmp, out)
+        with phase("11c ASR, cli slice --asr"):
+            ctc = asr_phase(torch, tmp, seed, out)
+        face = write_face_weights(os.path.join(tmp, "face"), seed=seed,
+                                  yolo=True)
+        ev = write_eval_weights(os.path.join(tmp, "eval"), seed=seed)
+        with phase("11d cli verify-weights"):
+            verify_phase(tmp, dict(face=face, ckpt=assets["ckpt"],
+                                   hubert=assets["hubert"], ctc=ctc, **ev),
+                         out)
+        with phase("11e legacy landmark"):
+            legacy_phase(torch, tmp, seed, face, out)
+        with phase("11a cost, the CPU's counts"):
+            check_costs(cpu_costs, out)
+    finally:
+        for job in cpu_costs.values():
+            job.kill()
+    return paths
+
+
 def print_kernel_resources(_build):
     """Each compiled kernel's registers, static shared memory, spills and
     any performance warning (from ptxas -v in build/nvcc.log), and the
@@ -2856,6 +3326,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic wavs")
+    ap.add_argument("--run-exported", default=None, metavar="DIR",
+                    help="(the child process of phase 11b)")
     args = ap.parse_args()
     import torch
 
@@ -2868,6 +3340,8 @@ def main() -> int:
         print(f"FAIL: the port is not importable beside this script: {e}",
               file=sys.stderr)
         return 1
+    if args.run_exported:
+        return run_exported(args.run_exported)
     # the kernels' fp32 checks hold true fp32 plain versions: TF32 off
     # until the audio phases
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -2917,6 +3391,8 @@ def main() -> int:
             paths.update(training(torch, timer, args.seed, metrics))
         paths.update(evaluation(torch, assets, clone, args.seed, metrics,
                                 os.path.join(work, "eval")))
+        paths.update(tools(torch, assets, args.seed, metrics,
+                           os.path.join(work, "tools")))
 
     kernels_line = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -5,6 +5,7 @@ step3 clip; a stub extractor returns seeded feature rows wherever HuBERT
 itself is not under test (tests/test_torch_hubert.py holds HuBERT)."""
 
 import dataclasses
+import inspect
 import json
 import os
 import time
@@ -18,6 +19,7 @@ from calipsync_tpu import config as jax_config
 from calipsync_tpu.infer import synthesizer as jax_synth
 from calipsync_tpu.media import mp4 as jax_mp4
 from calipsync_tpu.nn.unet import Generator as JaxGenerator
+from calipsync_tpu.serve import stream_manager as jax_stream_manager
 from calipsync_tpu.pipelines.inference import \
     VideoStreamManager as JaxVideoStreamManager
 from calipsync_tpu_torch import cli, config
@@ -28,6 +30,7 @@ from calipsync_tpu_torch.core.weights import (from_jax_generator,
 from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
 from calipsync_tpu_torch.media import mp4
 from calipsync_tpu_torch.media.video import open_video_writer
+from calipsync_tpu_torch.metrics import global_metrics
 from calipsync_tpu_torch.nn.hubert import HubertConfig, HubertModel
 from calipsync_tpu_torch.pipelines.inference import VideoStreamManager
 from calipsync_tpu_torch.serve.players import NullPlayer
@@ -227,6 +230,7 @@ def test_streaming_manager_null_player(synthetic_step3_dir, tmp_path):
     assert (normal, danmu) == (7, 3)
     expected = [b.original_audio_chunk for name in ("danmu", "normal")
                 for b in list(mgr.audio_queues[name].queue)]
+    global_metrics().reset()
     mgr.start_playing()
     for busy in (mgr.warmup, mgr.start_playing):
         with pytest.raises(RuntimeError, match="still runs"):
@@ -243,6 +247,15 @@ def test_streaming_manager_null_player(synthetic_step3_dir, tmp_path):
     for got, want in zip(played, expected):
         np.testing.assert_array_equal(got, want)
     assert mgr.get_queue_lengths() == {"normal": 0, "danmu": 0}
+    # the process metrics, under the JAX manager's names
+    snap = global_metrics().snapshot()
+    assert snap["counters"] == {"serve.frames": mgr.frames_uploaded}
+    assert set(snap["gauges"]) == {"serve.player_buffer"}
+    assert set(snap["timings"]) == {"serve.synthesis_window"}
+    jax_source = inspect.getsource(jax_stream_manager)
+    for name in ("serve.frames", "serve.player_buffer",
+                 "serve.synthesis_window", "serve.producer_errors"):
+        assert f'"{name}"' in jax_source
 
 
 def test_load_config_matches_jax(tmp_path):
