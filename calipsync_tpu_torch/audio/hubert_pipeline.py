@@ -11,6 +11,14 @@ utils/hubert_extractor.py HubertExtractor):
   - ``extract_features_stream``: the same rows as a generator of blocks,
     one a chunk, for the pipelined offline manager.
 
+With ``mesh=`` the model shards over the mesh's ``model`` axis, every
+rank calling the same methods with the same audio and getting the same
+features: ``parallel="tp"`` shards each layer's heads and MLP
+(core/tp.py); ``parallel="pp"`` pipelines the layers (core/pp.py), and
+consecutive rows of one padded length run as one batch of
+``pp_microbatches`` rows (one a stage by default), padded with masked
+zero rows, so a single-row call works too.
+
 Each row is padded up to a multiple of ``bucket_samples`` and run with
 ``num_valid_samples`` masking, which makes the padding exact for both
 extractors (nn/hubert.py); the padded shapes are those of the JAX
@@ -29,6 +37,8 @@ import torch
 
 from calipsync_tpu_torch.audio.io import load_audio
 from calipsync_tpu_torch.core.device import resolve_device
+from calipsync_tpu_torch.core.pp import drop_other_stages, hubert_pp_apply
+from calipsync_tpu_torch.core.tp import shard_hubert
 from calipsync_tpu_torch.nn.hubert import (HubertConfig, HubertModel,
                                            normalize_wav)
 
@@ -36,10 +46,6 @@ KERNEL = 400
 STRIDE = 320
 CLIP_SAMPLES = STRIDE * 1000          # 20 s at 16 kHz
 CHUNK_LEN = CLIP_SAMPLES - STRIDE + KERNEL  # 320080 -> exactly 1000 frames
-
-_NO_MESH = ("mesh-sharded HuBERT (tensor or pipeline parallel) is not "
-            "ported yet: ROADMAP.md A.3 (mesh serving and mesh HuBERT)")
-
 
 class HubertFeatureExtractor:
     """A HubertModel on one device, driven from the host."""
@@ -52,7 +58,9 @@ class HubertFeatureExtractor:
                  kernel: int = KERNEL, stride: int = STRIDE,
                  clip_samples: int = CLIP_SAMPLES,
                  device: str | torch.device | None = None,
-                 mesh=None, parallel: Optional[str] = None):
+                 mesh=None, model_axis: str = "model",
+                 parallel: str = "tp",
+                 pp_microbatches: Optional[int] = None):
         """
         Args:
           state_dict: HF-keyed HuBERT weights (e.g. from
@@ -67,10 +75,11 @@ class HubertFeatureExtractor:
             reference's 400/320/320000 for HuBERT-large); tests override
             them to run the same chunking on tiny configs.
           device: 'cuda' (default; raises without a GPU) or 'cpu'.
-          mesh, parallel: sharded extraction is not ported and raises.
+          mesh: a ``core.mesh.Mesh`` with a ``model_axis`` axis to shard
+            the model over (module docstring), ``parallel`` 'tp' or 'pp';
+            ``pp_microbatches`` rows a pipelined batch, a multiple of the
+            stages (default: one a stage).
         """
-        if mesh is not None or parallel is not None:
-            raise NotImplementedError(_NO_MESH)
         self.device = resolve_device(device)
         self.config = config or (model.config if model is not None
                                  else HubertConfig.large())
@@ -78,6 +87,20 @@ class HubertFeatureExtractor:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, dtype or torch.float32).eval()
+        self.mesh, self.model_axis = mesh, model_axis
+        self._pp_rows = 0
+        if mesh is not None and parallel == "pp":
+            stages = mesh.axis_size(model_axis)
+            rows = int(pp_microbatches or stages)
+            if rows % stages:
+                raise ValueError(f"pp_microbatches {rows} must be a "
+                                 f"multiple of {stages} stages")
+            self._pp_rows = rows
+            drop_other_stages(self.model, mesh, model_axis)
+        elif mesh is not None:
+            if parallel != "tp":
+                raise ValueError(f"unknown parallel mode {parallel!r}")
+            shard_hubert(self.model, mesh, model_axis, self.config)
         self.bucket = bucket_samples
         self.kernel = kernel
         self.stride = stride
@@ -87,22 +110,43 @@ class HubertFeatureExtractor:
     @torch.inference_mode()
     def _forward_rows(self, rows: list) -> list:
         """Normalized (L_i,) wavs -> [(num_frames(L_i), hidden) fp32], one
-        bucket-padded forward a row."""
+        bucket-padded forward a row; pipelined, consecutive rows of one
+        padded length share a forward of ``pp_microbatches`` rows, the
+        rest of it masked zero rows."""
+        quantum = self._pp_rows or 1
         outs = []
-        for row in rows:
-            row = np.asarray(row, np.float32)
-            n_valid = self.config.num_frames(int(row.shape[0]))
-            if n_valid <= 0:
+        idx = 0
+        while idx < len(rows):
+            row = np.asarray(rows[idx], np.float32)
+            if self.config.num_frames(int(row.shape[0])) <= 0:
                 outs.append(np.zeros((0, self.config.hidden_size),
                                      np.float32))
+                idx += 1
                 continue
             padded_len = -(-int(row.shape[0]) // self.bucket) * self.bucket
-            wav = torch.zeros((1, padded_len), dtype=torch.float32)
-            wav[0, :row.shape[0]] = torch.from_numpy(row)
-            out = self.model(wav.to(self.device),
-                             num_valid_samples=torch.tensor(
-                                 [row.shape[0]], device=self.device))
-            outs.append(out[0, :n_valid].float().cpu().numpy())
+            group = [row]
+            while len(group) < quantum and idx + len(group) < len(rows):
+                nxt = np.asarray(rows[idx + len(group)], np.float32)
+                if (self.config.num_frames(int(nxt.shape[0])) <= 0
+                        or -(-int(nxt.shape[0]) // self.bucket)
+                        * self.bucket != padded_len):
+                    break
+                group.append(nxt)
+            wav = torch.zeros((quantum, padded_len), dtype=torch.float32)
+            n_samples = torch.zeros((quantum,), dtype=torch.long)
+            for j, g in enumerate(group):
+                wav[j, :g.shape[0]] = torch.from_numpy(g)
+                n_samples[j] = g.shape[0]
+            wav, n_samples = wav.to(self.device), n_samples.to(self.device)
+            if self._pp_rows:
+                out = hubert_pp_apply(self.model, wav, self.mesh,
+                                      self.model_axis, quantum, n_samples)
+            else:
+                out = self.model(wav, num_valid_samples=n_samples)
+            for j, g in enumerate(group):
+                n_valid = self.config.num_frames(int(g.shape[0]))
+                outs.append(out[j, :n_valid].float().cpu().numpy())
+            idx += len(group)
         return outs
 
     def _normalized(self, speech_16k: np.ndarray) -> np.ndarray:
@@ -234,12 +278,15 @@ def _load_hf_state_dict(hubert_path: str | pathlib.Path) -> dict:
 
 def load_hf_checkpoint(hubert_path: str, dtype: Optional[torch.dtype] = None,
                        device: str | torch.device | None = None,
-                       mesh=None, parallel: Optional[str] = None
+                       mesh=None, model_axis: str = "model",
+                       parallel: str = "tp",
+                       pp_microbatches: Optional[int] = None
                        ) -> HubertFeatureExtractor:
     """An extractor from a local HF checkpoint directory (``config.json``
-    and the weights), on ``device`` ('cuda' by default)."""
-    if mesh is not None or parallel is not None:
-        raise NotImplementedError(_NO_MESH)
+    and the weights), on ``device`` ('cuda' by default); ``mesh`` and the
+    rest as :class:`HubertFeatureExtractor`."""
     config = HubertConfig.from_hf(pathlib.Path(hubert_path) / "config.json")
     return HubertFeatureExtractor(_load_hf_state_dict(hubert_path), config,
-                                  dtype=dtype, device=device)
+                                  dtype=dtype, device=device, mesh=mesh,
+                                  model_axis=model_axis, parallel=parallel,
+                                  pp_microbatches=pp_microbatches)

@@ -82,11 +82,34 @@ def build_lip_detector(weights_dir: str, detect_stride: int = 1,
                        detect_stride=detect_stride, device=device)
 
 
-def build_hubert(hubert_path: str, device=None):
-    """HF checkpoint dir -> extractor on ``device`` (fp32, one card)."""
+def build_hubert(hubert_path: str, device=None, mesh_cfg=None):
+    """HF checkpoint dir -> extractor on ``device`` (fp32). ``mesh_cfg``
+    (config.MeshConfig) with ``model > 1`` shards HuBERT over that many
+    ranks, tensor- or pipeline-parallel (``hubert_parallel``): the command
+    then runs as that many processes, one a card (torchrun or the
+    CALIPSYNC_* variables, README), each with the same arguments."""
     from calipsync_tpu_torch.audio.hubert_pipeline import load_hf_checkpoint
 
-    return load_hf_checkpoint(hubert_path, device=device)
+    mesh = None
+    if mesh_cfg is not None and mesh_cfg.model > 1:
+        from calipsync_tpu_torch.core import mesh as meshlib
+
+        meshlib.maybe_initialize_distributed()
+        n = meshlib.world_size()
+        if n != mesh_cfg.model:
+            raise SystemExit(
+                f"mesh.model={mesh_cfg.model} shards HuBERT over that many "
+                f"ranks, but the process group has {n}: launch "
+                f"{mesh_cfg.model} processes, one a card (torchrun "
+                f"--nproc-per-node {mesh_cfg.model}, or the CALIPSYNC_* "
+                f"variables)")
+        mesh = meshlib.make_named_mesh((n,), (mesh_cfg.model_axis_name,))
+    return load_hf_checkpoint(
+        hubert_path, device=device, mesh=mesh,
+        model_axis=mesh_cfg.model_axis_name if mesh_cfg else "model",
+        parallel=mesh_cfg.hubert_parallel if mesh_cfg else "tp",
+        pp_microbatches=(mesh_cfg.pp_microbatches or None)
+        if mesh_cfg else None)
 
 
 def load_generator(ckpt_path: str, cfg):
@@ -199,9 +222,11 @@ def cmd_featurize(args):
     """Audio file -> HuBERT feature rows .npy."""
     import numpy as np
 
-    _load_cfg(args)  # raises on settings the port cannot honour
-    ex = build_hubert(args.hubert, device=args.device)
+    cfg = _load_cfg(args)
+    ex = build_hubert(args.hubert, device=args.device, mesh_cfg=cfg.mesh)
     feats = ex.extract_from_file(args.audio)
+    if ex.mesh is not None and ex.mesh.axis_index(ex.model_axis) != 0:
+        return  # every rank holds the features; the first writes them
     np.save(args.out, feats)
     print(json.dumps({"out": args.out, "rows": int(feats.shape[0]),
                       "shape": list(feats.shape),
@@ -613,7 +638,9 @@ def main(argv=None):
                     help="recompute the generator's activations in the "
                          "backward pass")
     sp.add_argument("--zero1", action=argparse.BooleanOptionalAction,
-                    default=None, help="not ported: raises")
+                    default=None,
+                    help="ZeRO-1: shard the Adam moments over the "
+                         "data-parallel ranks (mesh.data)")
     sp.add_argument("--dtype", default="bfloat16",
                     choices=["float32", "bfloat16"],
                     help="compute dtype, over the config's; parameters "

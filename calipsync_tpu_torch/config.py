@@ -2,12 +2,11 @@
 and training parts of calipsync_tpu/config.py), loaded from the same JSON
 files.
 
-A setting the port cannot honour yet raises when the config is loaded:
-``mesh.model > 1`` (sharded HuBERT), ``mesh.dcn != 1`` (a host axis),
-``mesh.data > 1`` and ``train.zero1`` (data-parallel training). Sections
-and keys the port's entry points do not read (``audio``,
-``model.attn_impl``, ...) are accepted and ignored, as the JAX package's
-commands ignore the ones they do not read.
+The ``mesh`` section describes the ranks a command runs on (one process
+a card, core/mesh.py): ``data``/``dcn`` for data-parallel training and
+``model`` for sharded HuBERT. Sections and keys the port's entry points
+do not read (``audio``, ``model.attn_impl``, ...) are accepted and
+ignored, as the JAX package's commands ignore the ones they do not read.
 """
 
 from __future__ import annotations
@@ -44,11 +43,9 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's TrainConfig (calipsync_tpu/config.py:52-97), its
-    fields and defaults, but for two that would change nothing here, and
-    that a config file may still set (the port reads no key it does not
-    know): ``sync_batchnorm``, as the port trains on one card, where the
-    batch statistics are the replica's; and ``steps_per_dispatch``, JAX's
-    K steps folded into one device dispatch, as the port's step is eager
+    fields and defaults, but for ``steps_per_dispatch``, JAX's K steps
+    folded into one device dispatch, which a config file may still set
+    (the port reads no key it does not know): the port's step is eager
     PyTorch, with no dispatch to fold and no host sync a step to save (the
     losses stay on the card)."""
 
@@ -59,6 +56,10 @@ class TrainConfig:
     num_workers: int = 4               # host JPEG-decode threads
     seed: int = 0
     checkpoint_every: int = 0          # epochs; 0 = the final epoch only
+    # Under data parallelism every BatchNorm takes its train-mode
+    # statistics over the global batch (all ranks), as flax's
+    # BatchNorm(axis_name=...); off, each rank's own rows.
+    sync_batchnorm: bool = True
     # Every frame decoded once and its 160x160 crop kept on the card; a
     # step gathers crops by index. Off, or above resident_max_bytes, the
     # host decodes each batch (LipSyncDataset + Prefetcher).
@@ -72,21 +73,31 @@ class TrainConfig:
     grad_accum: int = 1
     # Recompute the generator's activations in the backward pass.
     remat: bool = False
-    # ZeRO-1 optimizer-state sharding across data-parallel ranks: not
-    # ported (ROADMAP.md A.8); raises when loaded.
+    # ZeRO-1: each data-parallel rank keeps the Adam moments of 1/D of
+    # the parameters; the same update as the mean path
+    # (train/trainer.py::Zero1Adam).
     zero1: bool = False
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The port runs on one card: ``model`` (sharded HuBERT), ``dcn`` (a
-    host axis) and ``data`` (data-parallel devices; -1 means all of them,
-    which is the one card) must not ask for more. The JAX package's other
-    mesh keys are ignored, as every key the port does not read."""
+    """The ranks a command runs on (one process a card, joined by the
+    process group that torchrun or the CALIPSYNC_* variables describe;
+    core/mesh.py). ``dcn == 1`` builds a 1-D ``(data,)`` mesh over the
+    first ``data`` ranks (-1: all), ``dcn > 1`` (-1: one a node) the
+    process-major ``(host, data)`` mesh; training shards its batch over
+    every axis of it. ``model > 1`` shards HuBERT over that many ranks,
+    tensor-parallel (``hubert_parallel='tp'``, core/tp.py) or pipelined
+    ('pp', core/pp.py; ``pp_microbatches`` 0 = one a stage)."""
 
     data: int = -1
+    axis_name: str = "data"
     dcn: int = 1
+    dcn_axis_name: str = "host"
     model: int = 1
+    model_axis_name: str = "model"
+    hubert_parallel: str = "tp"
+    pp_microbatches: int = 0
 
 
 @dataclass(frozen=True)
@@ -135,26 +146,10 @@ def _from_dict(cls, data: dict) -> Any:
 
 
 def _check_supported(cfg: PipelineConfig) -> PipelineConfig:
-    """Raise on a setting the port cannot honour yet."""
-    if cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"mesh.model={cfg.mesh.model}: sharded HuBERT is not ported "
-            "yet (ROADMAP.md A.3, mesh serving and mesh HuBERT); the "
-            "port runs HuBERT on one card")
-    if cfg.mesh.dcn != 1:
-        raise NotImplementedError(
-            f"mesh.dcn={cfg.mesh.dcn}: multi-host meshes are not ported "
-            "yet (ROADMAP.md A.8, multi-GPU)")
-    if cfg.mesh.data > 1:
-        raise NotImplementedError(
-            f"mesh.data={cfg.mesh.data}: data-parallel training is not "
-            "ported yet (ROADMAP.md A.8, DDP with SyncBatchNorm); the "
-            "port trains on one card")
-    if cfg.train.zero1:
-        raise NotImplementedError(
-            "train.zero1: ZeRO-1 optimizer sharding is not ported yet "
-            "(ROADMAP.md A.8, ZeroRedundancyOptimizer); the port trains "
-            "on one card with the whole Adam state")
+    """Raise on a setting the port does not know."""
+    if cfg.mesh.hubert_parallel not in ("tp", "pp"):
+        raise ValueError(
+            f"unknown mesh.hubert_parallel: {cfg.mesh.hubert_parallel!r}")
     if cfg.model.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown model.dtype: {cfg.model.dtype!r}")
     return cfg

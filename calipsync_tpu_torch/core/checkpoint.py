@@ -30,15 +30,21 @@ def checkpoint_path(directory, step: int) -> pathlib.Path:
 
 
 def save_checkpoint(directory, step: int, state,
-                    data_rng_state: Optional[dict] = None) -> pathlib.Path:
+                    data_rng_state: Optional[dict] = None,
+                    optimizer_state: Optional[dict] = None) -> pathlib.Path:
     """Save a :class:`~calipsync_tpu_torch.train.trainer.TrainState` under
     ``step``, with ``data_rng_state`` (a numpy ``bit_generator.state``:
-    where the data order resumes) when given; returns the path."""
+    where the data order resumes) when given; returns the path.
+    ``optimizer_state`` replaces ``state.optimizer.state_dict()`` (a
+    ZeRO-1 state gathers its moments on every rank, and one rank
+    writes)."""
     path = checkpoint_path(directory, step)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(".pt.tmp")
+    if optimizer_state is None:
+        optimizer_state = state.optimizer.state_dict()
     saved = {"model": state.model.state_dict(),
-             "optimizer": state.optimizer.state_dict(),
+             "optimizer": optimizer_state,
              "step": state.step}
     if data_rng_state is not None:
         saved["data_rng"] = data_rng_state

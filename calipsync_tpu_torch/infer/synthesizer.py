@@ -18,6 +18,11 @@ implementation's image_infer_v1/tools/frame_synthesizer/infer_api.py).
     blend -> alpha composite) is uint8 host work through
     native/compositor.cpp, pixel-matching the reference.
 
+With ``mesh=`` (core/mesh.py) each device batch is split over the
+mesh's data axis: every rank holds the crop store, features and weights,
+runs its block of rows and all-gathers the packed uint8 rows, so every
+rank returns every frame (``make_generate_resident_sharded_fn``).
+
 Transfer formats: 'bgr' (reference-exact uint8 crops), 'yuv420' (planar
 I420 packed on the device, half the bytes) and 'adaptive', which runs one
 of the two a call and keeps the faster by measured fps (the JAX package's
@@ -40,6 +45,7 @@ import torch
 
 from calipsync_tpu_torch.audio.windows import batched_windows
 from calipsync_tpu_torch.config import CropConfig
+from calipsync_tpu_torch.core import mesh as meshlib
 from calipsync_tpu_torch.core.device import resolve_device
 from calipsync_tpu_torch.native_ext import composite_frame
 from calipsync_tpu_torch.nn.unet import Generator
@@ -153,6 +159,28 @@ def make_generate_resident_fn(model: Generator, crop: CropConfig,
     return fn
 
 
+def make_generate_resident_sharded_fn(model: Generator, crop: CropConfig,
+                                      mesh, axis_name: str = "data",
+                                      transfer_format: str = "bgr",
+                                      device=None):
+    """Multi-card :func:`make_generate_resident_fn`: ``phys_idx`` and
+    ``feat_idx`` (the global batch, the same on every rank) split over
+    ``axis_name``; each rank gathers, masks, windows, runs the generator
+    and packs its rows, and the uint8 rows are all-gathered, so every rank
+    returns the whole (B, S') batch (JAX's ``out_specs=P(axis_name)``
+    fetched to the host). The crop store, the features and ``model``'s
+    weights are each rank's own, the same on every rank."""
+    step = make_generate_resident_fn(model, crop, transfer_format, device)
+
+    def fn(crops_u8, phys_idx, audio_feats, feat_idx):
+        local = step(crops_u8, meshlib.shard_rows(phys_idx, mesh, axis_name),
+                     audio_feats,
+                     meshlib.shard_rows(feat_idx, mesh, axis_name))
+        return meshlib.all_gather(local, mesh, axis_name)
+
+    return fn
+
+
 class PingPongSequencer:
     """Physical-frame walk (reference _generate_frame_sequence:147-190)."""
 
@@ -219,7 +247,8 @@ class FrameSynthesizer:
                  transfer_format: str = "bgr",
                  preload_max_bytes: int = 4 << 30,
                  first_batch_size: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None, axis_name: str = "data"):
         """
         Args:
           state_dict: generator weights with the reference key names (e.g.
@@ -242,11 +271,18 @@ class FrameSynthesizer:
             frame ships early; the rest runs at ``batch_size``.
             Output-identical.
           device: 'cuda' (default; raises without a GPU) or 'cpu'.
+          mesh: a ``core.mesh.Mesh``: each device batch splits over its
+            ``axis_name`` ranks (module docstring). Needs ``preload``, a
+            ``batch_size`` (and head batch) that divide over the axis, and
+            a crop store within ``preload_max_bytes``. Every rank builds
+            the synthesizer with the same arguments and makes the same
+            calls; rank 0's weights are broadcast to the others.
         """
         _check_format(transfer_format, TRANSFER_FORMATS + ("adaptive",))
         self.device = resolve_device(device)
         self.data_dir = data_dir
         self.batch_size = batch_size
+        self.mesh, self.axis_name = None, axis_name  # set_first_batch_size
         self.set_first_batch_size(first_batch_size)
         self.crop = crop
         self.frames_dir = os.path.join(data_dir, "frames")
@@ -270,9 +306,23 @@ class FrameSynthesizer:
         self._last_explore = 0.0
         self._generate_fns = {f: make_generate_fn(self.model, f, self.device)
                               for f in fmts}
-        self._generate_resident_fns = {
-            f: make_generate_resident_fn(self.model, crop, f, self.device)
-            for f in fmts}
+        if mesh is not None:
+            if not preload:
+                raise ValueError("mesh sharding requires preload=True")
+            if batch_size % mesh.axis_size(axis_name):
+                raise ValueError("batch_size must divide over the mesh")
+            self.mesh = mesh
+            self.set_first_batch_size(self.first_batch_size)
+            meshlib.replicate(self.model, mesh, axis_name)
+            self._generate_resident_fns = {
+                f: make_generate_resident_sharded_fn(
+                    self.model, crop, mesh, axis_name, f, self.device)
+                for f in fmts}
+        else:
+            self._generate_resident_fns = {
+                f: make_generate_resident_fn(self.model, crop, f,
+                                             self.device)
+                for f in fmts}
         self.executor = ThreadPoolExecutor(max_workers=max(4, batch_size))
         self.sequencer = PingPongSequencer(
             self.total_frames, np.random.default_rng(seed))
@@ -285,6 +335,15 @@ class FrameSynthesizer:
         if preload and self.total_frames > 0:
             store_bytes = self.total_frames * crop.size * crop.size * 3
             if store_bytes > preload_max_bytes:
+                if mesh is not None:
+                    # the upload path is unsharded: a mesh would quietly
+                    # serve at one card's speed or worse
+                    raise ValueError(
+                        f"crop store {store_bytes >> 20} MiB exceeds "
+                        f"preload_max_bytes ({preload_max_bytes >> 20} "
+                        f"MiB) and mesh sharding requires the resident "
+                        f"store; raise preload_max_bytes or serve "
+                        f"without a mesh")
                 print(f"crop store {store_bytes >> 20} MiB exceeds "
                       f"preload_max_bytes; using the upload path")
             else:
@@ -292,13 +351,17 @@ class FrameSynthesizer:
 
     def set_first_batch_size(self, n: int) -> int:
         """Validated setter for the first-window head batch: sizes outside
-        [1, batch_size) disable it (0). Returns the effective value."""
+        [1, batch_size), or that do not divide over the serving mesh,
+        disable it (0). Returns the effective value."""
         requested = n
         if n < 0 or n >= self.batch_size:
             n = 0
+        if n and self.mesh is not None and n % self.mesh.axis_size(
+                self.axis_name):
+            n = 0
         if requested > 0 and n == 0:
             print(f"first_batch_size {requested} disabled: must be in "
-                  f"[1, batch_size)")
+                  f"[1, batch_size) and divide over the serving mesh")
         self.first_batch_size = n
         return n
 

@@ -302,21 +302,25 @@ def time_launches(table, calls, timer, plain: bool = True):
 
 
 def grad_agreement(ours: dict, plain: dict, exact: dict,
-                   zero_norm: float = 1e-7) -> dict:
+                   zero_norm: float = 1e-7, zero_atol: float = 1e-5) -> dict:
     """Leaf by leaf (name -> gradient), how far ``ours`` and ``plain`` are
     from ``exact``, relative to the exact leaf's norm. Returns the
     relative errors, the leaves that fail GRAD_LEAF_RATIO and whether the
     rms ratio is within GRAD_RMS_RATIO. A leaf whose exact gradient is zero
-    (a bias ahead of a train-mode BatchNorm) must be zero to rounding."""
-    rows, bad = {}, []
+    (a bias ahead of a train-mode BatchNorm) must be zero to rounding:
+    within ``zero_atol`` in both; ``zeros`` holds their largest |g|, ours
+    and plain's."""
+    rows, bad, zeros = {}, [], {}
     for name, g64 in exact.items():
         g64 = g64.double()
         a, b = ours[name].double(), plain[name].double()
         norm = g64.norm().item()
         if norm < zero_norm:
-            if max(a.abs().max().item(), b.abs().max().item()) > 1e-5:
+            zeros[name] = (a.abs().max().item(), b.abs().max().item())
+            if max(zeros[name]) > zero_atol:
                 bad.append(f"{name}: exact gradient zero, got "
-                           f"{a.abs().max().item():.3g}")
+                           f"{zeros[name][0]:.3g} (plain "
+                           f"{zeros[name][1]:.3g}, bar {zero_atol:.3g})")
             continue
         e_ours = (a - g64).norm().item() / norm
         e_plain = (b - g64).norm().item() / norm
@@ -327,6 +331,7 @@ def grad_agreement(ours: dict, plain: dict, exact: dict,
     rms_ours = float(np.sqrt(np.mean([r[0] ** 2 for r in rows.values()])))
     rms_plain = float(np.sqrt(np.mean([r[1] ** 2 for r in rows.values()])))
     return dict(errors=rows, bad=bad, rms=rms_ours, rms_plain=rms_plain,
+                zeros=zeros,
                 ok=not bad and rms_ours <= GRAD_RMS_RATIO * rms_plain + 1e-4)
 
 

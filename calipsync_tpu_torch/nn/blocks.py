@@ -87,19 +87,47 @@ class _FlaxRunningStats:
     of the autograd graph, so updating them between the forward and the
     backward is safe."""
 
+    # (mesh, axes) of the replicas whose batches share their statistics
+    # (``sync_batchnorm``), or None
+    sync = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync is not None and self.sync[0].axis_size(self.sync[1]) > 1:
+            return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        self._move_running(mean, invstd.pow(-2) - self.eps)
+        return y
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             self.running_mean.lerp_(mean.to(self.running_mean),
                                     self.momentum)
-            self.running_var.lerp_(
-                invstd.to(self.running_var).pow(-2) - self.eps,
-                self.momentum)
+            self.running_var.lerp_(var.to(self.running_var), self.momentum)
             self.num_batches_tracked.add_(1)
-        return y
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's ``BatchNorm(axis_name=...)``: the batch mean and mean of
+        squares of every replica's batch (in fp32 at least), averaged over
+        the axes with their gradient, give the mean and the biased
+        variance."""
+        from calipsync_tpu_torch.core.mesh import all_mean_with_grad
+
+        c = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([x32.mean(dims), (x32 * x32).mean(dims)])
+        stats = all_mean_with_grad(stats, *self.sync)
+        mean, mean2 = stats[:c], stats[c:]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(x32.dtype)
+        y = ((x32 - mean.view(shape)) * scale.view(shape)
+             + self.bias.to(x32.dtype).view(shape))
+        self._move_running(mean.detach(), var.detach())
+        return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
@@ -108,6 +136,16 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
     pass
+
+
+def sync_batchnorm(model: nn.Module, mesh=None, axes=None) -> nn.Module:
+    """Make every BatchNorm of ``model`` take its train-mode statistics
+    over the batches of the ranks along ``axes`` of ``mesh`` (None: its
+    own batch only); returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, _FlaxRunningStats):
+            m.sync = None if mesh is None else (mesh, axes)
+    return model
 
 
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,

@@ -272,7 +272,21 @@ class PositionalConvEmbedding(nn.Module):
         return gelu(y).transpose(1, 2)
 
 
+def _row_parallel(lin: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """``lin(x)``; under tensor parallelism (``tp`` = (mesh, axis), set by
+    ``core/tp.py``) ``lin`` holds this rank's input columns, so the partial
+    products are summed over the axis before the bias is added once."""
+    if tp is None:
+        return lin(x)
+    from calipsync_tpu_torch.core.mesh import all_reduce
+
+    return all_reduce(F.linear(x, lin.weight), *tp) + lin.bias
+
+
 class SelfAttention(nn.Module):
+    # (mesh, axis) when the heads are sharded over a mesh axis (core/tp.py)
+    tp = None
+
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         self.heads = cfg.num_attention_heads
@@ -296,10 +310,12 @@ class SelfAttention(nn.Module):
                                         MASKED_LOGIT)
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, -1)
-        return self.out_proj(out.to(x.dtype))
+        return _row_parallel(self.out_proj, out.to(x.dtype), self.tp)
 
 
 class FeedForward(nn.Module):
+    tp = None  # as SelfAttention.tp
+
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         self.intermediate_dense = nn.Linear(cfg.hidden_size,
@@ -308,7 +324,8 @@ class FeedForward(nn.Module):
                                       cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(gelu(self.intermediate_dense(x)))
+        return _row_parallel(self.output_dense,
+                             gelu(self.intermediate_dense(x)), self.tp)
 
 
 class EncoderLayer(nn.Module):
@@ -341,16 +358,22 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(
             [EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers)])
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The positional conv (and the post-LN model's norm): what runs
+        ahead of the layers."""
+        x = x + self.pos_conv_embed(x)
+        return x if self.stable else self.layer_norm(x)
+
+    def finish(self, x: torch.Tensor) -> torch.Tensor:
+        """What runs after the layers: the pre-LN model's final norm."""
+        return self.layer_norm(x) if self.stable else x
+
     def forward(self, x: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.pos_conv_embed(x)
-        if not self.stable:
-            x = self.layer_norm(x)
+        x = self.embed(x)
         for layer in self.layers:
             x = layer(x, key_mask)
-        if self.stable:
-            x = self.layer_norm(x)
-        return x
+        return self.finish(x)
 
 
 class HubertModel(nn.Module):
@@ -381,6 +404,14 @@ class HubertModel(nn.Module):
     def forward(self, input_values: torch.Tensor,
                 num_valid_samples: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        x, key_mask = self.front(input_values, num_valid_samples)
+        return self.encoder(x, key_mask)
+
+    def front(self, input_values: torch.Tensor,
+              num_valid_samples: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The conv front end and the projection, pad frames zeroed: the
+        encoder's input and its key mask (None when unmasked)."""
         dtype = self.masked_spec_embed.dtype
         masked = num_valid_samples is not None
         if not masked:
@@ -395,4 +426,4 @@ class HubertModel(nn.Module):
             frames = torch.arange(x.shape[1], device=x.device)
             key_mask = frames[None, :] < num_valid_frames[:, None]
             x = x.masked_fill(~key_mask[..., None], 0.0)
-        return self.encoder(x, key_mask)
+        return x, key_mask

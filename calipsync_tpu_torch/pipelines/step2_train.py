@@ -1,6 +1,9 @@
 """Step 2: fine-tune the generator on one speaker (counterpart of
 calipsync_tpu/pipelines/step2_train.py; the reference's
-step2_train_unet.py:38-138), on one card.
+step2_train_unet.py:38-138), on one card or data-parallel over the ranks
+of ``cfg.mesh`` (``core.mesh.build_mesh``: one process a card, each
+running this function with the same arguments; ``train.zero1`` shards the
+Adam moments, ``train.sync_batchnorm`` shares the BatchNorm statistics).
 
 The speaker's crops live on the card (``ResidentLipSyncDataset``) unless
 they would take more than ``train.resident_max_bytes``; then the host
@@ -8,7 +11,9 @@ decodes each batch on a background thread into pinned memory
 (``LipSyncDataset`` + ``Prefetcher``) and the training thread copies it.
 Checkpoints are keyed by epoch and resume; every save also writes
 ``generator.pth``, the bare reference-layout state_dict that the port's
-``cli.py`` and the JAX package's ``import_generator`` read.
+``cli.py`` and the JAX package's ``import_generator`` read. Over a mesh
+the first rank writes them; a checkpoint holds the replicated Adam layout
+whatever the ranks or ``zero1``, so a run resumes on any topology.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from calipsync_tpu_torch.config import PipelineConfig
 from calipsync_tpu_torch.core import checkpoint as ckpt
+from calipsync_tpu_torch.core import mesh as meshlib
 from calipsync_tpu_torch.core.device import resolve_device
 from calipsync_tpu_torch.data.dataset import (LipSyncDataset, Prefetcher,
                                               ResidentLipSyncDataset,
@@ -30,6 +36,7 @@ from calipsync_tpu_torch.data.dataset import (LipSyncDataset, Prefetcher,
 from calipsync_tpu_torch.nn.vgg import load_vgg19
 from calipsync_tpu_torch.train.trainer import (DTYPES, build_model,
                                                create_train_state,
+                                               create_zero1_state,
                                                make_resident_train_step,
                                                make_train_step)
 
@@ -66,10 +73,28 @@ def train_digital_model(dataset_dir: str, save_dir: str,
                        cfg, resume, log_every, None, loss_history, device)
 
 
+def _stop(guard, mesh, device) -> bool:
+    """Whether to stop at this batch boundary; over a mesh, whether any
+    rank was signalled, so that every rank stops at the same batch."""
+    if mesh is None:
+        return guard.triggered
+    flag = torch.tensor([float(guard.triggered)], device=device)
+    return bool(meshlib.all_reduce(flag, mesh,
+                                   meshlib.batch_axes(mesh)).item())
+
+
 def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
                 resume, log_every, guard, loss_history, device) -> str:
     device = resolve_device(device)
     tc = cfg.train
+    mesh = meshlib.build_mesh(cfg.mesh)
+    if mesh is not None and not mesh.is_member():
+        return ""  # a rank outside mesh.data has nothing to train
+    if tc.zero1 and mesh is None:
+        raise ValueError("train.zero1 shards the Adam moments over "
+                         "data-parallel ranks: launch one process a card "
+                         "(torchrun, or the CALIPSYNC_* variables)")
+    main = meshlib.process_index() == 0  # the rank that writes
     os.makedirs(save_dir, exist_ok=True)
     model = build_model(cfg.model, seed=tc.seed)
     if unet_checkpoint:
@@ -79,14 +104,24 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         sd = torch.load(unet_checkpoint, map_location="cpu",
                         weights_only=True)
         model.load_state_dict(sd.get("state_dict", sd), strict=True)
-    state = create_train_state(model.to(device), tc)
+    model.to(device)
+    if mesh is not None:
+        meshlib.replicate(model, mesh)
+        state = (create_zero1_state(model, tc, mesh) if tc.zero1
+                 else create_train_state(model, tc))
+    else:
+        state = create_train_state(model, tc)
 
     # the data order: a fresh start draws the JAX package's stream from
     # tc.seed; a resumed run goes on from the checkpoint's state
     rng = np.random.default_rng(tc.seed)
 
     def save(key: int, data_rng_state: dict) -> str:
-        path = ckpt.save_checkpoint(save_dir, key, state, data_rng_state)
+        opt_state = state.optimizer.state_dict()  # every rank: collective
+        if not main:
+            return str(ckpt.checkpoint_path(save_dir, key))
+        path = ckpt.save_checkpoint(save_dir, key, state, data_rng_state,
+                                    opt_state)
         tmp = os.path.join(save_dir, GENERATOR_FILE + ".tmp")
         torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
                    tmp)
@@ -108,12 +143,12 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
               f"resident_max_bytes; using the streaming dataset")
         resident = False
     if resident:
-        step_fn = make_resident_train_step(tc, cfg.crop)
+        step_fn = make_resident_train_step(tc, cfg.crop, mesh)
         ds = ResidentLipSyncDataset(dataset_dir, cfg.model.mode, cfg.crop,
                                     device=device,
                                     num_workers=tc.num_workers)
     else:
-        step_fn = make_train_step(tc)
+        step_fn = make_train_step(tc, mesh)
         ds = LipSyncDataset(dataset_dir, cfg.model.mode, cfg.crop)
     feats = torch.from_numpy(ds.audio_feats).to(device)
     put_fn = pin_memory if device.type == "cuda" else None
@@ -141,10 +176,10 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
                     metrics = step_fn(state, batch, feats, vgg)
                 losses.append(metrics["loss"])
                 n_batches += 1
-                if log_every and n_batches % log_every == 0:
+                if main and log_every and n_batches % log_every == 0:
                     print(f"epoch {epoch + 1}/{tc.epochs} batch {n_batches} "
                           f"loss {float(metrics['loss']):.6f}")
-                if guard is not None and guard.triggered:
+                if guard is not None and _stop(guard, mesh, device):
                     preempted = True
                     break
         finally:

@@ -13,6 +13,10 @@ one card (counterpart of calipsync_tpu/serve/multi_stream.py).
     sides in the shared feature buffer, which reproduces the per-call zero
     padding of a single-stream call.
 
+With ``mesh=`` every device batch also splits over the mesh's data axis
+(``make_generate_resident_sharded_fn``): every rank builds the same
+synthesizer, makes the same calls and returns every stream's frames.
+
 All device batches of a tick are launched first (asynchronous on the CUDA
 stream, each with its copy into pinned memory behind an event), then each
 is gathered and composited in turn, so the host composites batch k while
@@ -28,19 +32,15 @@ import numpy as np
 import torch
 
 from calipsync_tpu_torch.config import CropConfig
+from calipsync_tpu_torch.core import mesh as meshlib
 from calipsync_tpu_torch.core.device import resolve_device
-from calipsync_tpu_torch.infer.synthesizer import (FrameSynthesizer,
-                                                   PingPongSequencer,
-                                                   _check_format, _Pending,
-                                                   make_generate_resident_fn,
-                                                   yuv420_unpack)
+from calipsync_tpu_torch.infer.synthesizer import (
+    FrameSynthesizer, PingPongSequencer, _check_format, _Pending,
+    make_generate_resident_fn, make_generate_resident_sharded_fn,
+    yuv420_unpack)
 from calipsync_tpu_torch.nn.unet import Generator
 
 _PAD = 8  # +-8-row window context
-
-_NO_MESH = ("MultiStreamSynthesizer(mesh=...) is not ported yet: ROADMAP.md "
-            "A.3 (mesh serving and mesh HuBERT)")
-
 
 @dataclass
 class _Stream:
@@ -55,7 +55,8 @@ class MultiStreamSynthesizer:
                  speaker_dirs: Sequence[str],
                  model: Optional[Generator] = None, batch_size: int = 64,
                  crop: CropConfig = CropConfig(), seed: int = 0,
-                 mesh=None, feature_bucket: int = 512,
+                 mesh=None, axis_name: str = "data",
+                 feature_bucket: int = 512,
                  transfer_format: str = "bgr",
                  device: str | torch.device | None = None):
         """
@@ -65,14 +66,17 @@ class MultiStreamSynthesizer:
           speaker_dirs: one step-3 ``infer_data`` directory a speaker.
           batch_size: device batch; a tick's tail batch is padded to it.
           seed: seeds the streams' sequencers (``add_stream``).
-          mesh: sharding over cards is not ported and raises.
+          mesh: a ``core.mesh.Mesh``; each device batch splits over its
+            ``axis_name`` ranks, so ``batch_size`` must divide over it.
           feature_bucket: a tick's feature buffer is padded up to a
             multiple of this many rows, so few shapes reach the card.
           transfer_format: 'bgr' or 'yuv420'.
           device: 'cuda' (default; raises without a GPU) or 'cpu'.
         """
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        if mesh is not None and batch_size % mesh.axis_size(axis_name):
+            # before the store is built: a batch that does not divide
+            # would fail only at the first tick
+            raise ValueError("batch_size must divide over the mesh")
         _check_format(transfer_format)
         self.device = resolve_device(device)
         model = model or Generator()
@@ -101,8 +105,14 @@ class MultiStreamSynthesizer:
         self._offsets = offsets
         self._crops_dev = torch.from_numpy(
             np.concatenate(stores, axis=0)).to(self.device)
-        self._generate = make_generate_resident_fn(
-            self.model, crop, transfer_format, self.device)
+        if mesh is not None:
+            meshlib.replicate(self.model, mesh, axis_name)
+            self._generate = make_generate_resident_sharded_fn(
+                self.model, crop, mesh, axis_name, transfer_format,
+                self.device)
+        else:
+            self._generate = make_generate_resident_fn(
+                self.model, crop, transfer_format, self.device)
         self._streams: Dict[str, _Stream] = {}
 
     # ------------- stream registry -------------

@@ -138,8 +138,29 @@ then, on the card and with no fallback anywhere:
      with the seeded YOLOv8n-face keypoints and PFLD, card against CPU
      within 1 px, ms a frame.
 
+ 12. many cards (core/mesh.py; the card's compute mode must let two
+     processes share it): (a) NCCL at world size 1 on this card, the
+     production backend: build_mesh, FrameSynthesizer(mesh=) bgr and
+     yuv420 at B=128, 256 frames equal to the unsharded ones, a DP step
+     with sync-BN and a ZeRO-1 step (fp32, B=16) against the one-card
+     step (the loss, BatchNorm statistics, weights within Adam's
+     first-step envelope and 0.999 of them within 1e-6, every gradient
+     leaf against fp64); (b) two gloo ranks spawned on this card
+     (kernels built here first): FrameSynthesizer(mesh=) at B=128
+     against one card at the batch-invariance bound, one
+     MultiStreamSynthesizer(mesh=) tick (8 streams x 25 rows) likewise,
+     DP steps in fp32 and bf16, 8 + 8 rows with sync-BN, against one card
+     at B=16 (every gradient leaf against fp64 as close as the one-card
+     step's, grad_agreement), ZeRO-1 against DP (0.999 of the weights
+     within 1e-6) and half the Adam moments a rank, HuBERT-large TP and PP
+     on a 20 s chunk against one card at (a)'s tolerance, EP (8 experts
+     of 1024x4096, 1000 tokens) against moe_ffn, and
+     dryrun.run_sections(2) on the card; each rank's launches of the
+     parallel paths, every kernel on every rank; each part's seconds, the
+     DP step's ms and sharded serving's fps at 1 and 2 ranks.
+
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d, 8c, 9a, 9b, 10e, 11a, 11b) reads the launch counters, set to 0 just before
+7c, 7d, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b) reads the launch counters, set to 0 just before
 it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
 attention is the kernel).
@@ -158,6 +179,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import signal
@@ -3230,6 +3252,436 @@ def tools(torch, assets, seed, out, tmp) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ 12 many cards
+
+MC_ROWS = 2 * BATCH      # sharded serving: two device batches a request
+MC_STREAMS = 8           # one multi-stream tick: 8 streams x 25 rows
+MC_CHUNK = 320_000       # HuBERT-large: one 20 s chunk
+MC_EXPERTS = 8           # EP at HuBERT-large width: 8 experts of 1024x4096
+MC_TOKENS = 1000         # a 20 s chunk's frames
+# a rank's result against the one-card run at the repo's bar (atol, rms,
+# rtol; kernels/measure.py max_err): TP and PP HuBERT at phase (a)'s
+# HUBERT_CPU_TOL, EP at the repo's bar
+MC_TOL = (1e-5, 0.0, 1e-3)
+MC_LR = 1e-3             # TrainConfig().lr: Adam's first step is ~lr sign(g)
+MC_BF16_BN_RTOL = 5e-2   # bf16 BatchNorm statistics, DP against one card
+# Two steps that apply the same update math to the same fp32 gradients
+# (DP or ZeRO-1 at world size 1 against one card, ZeRO-1 against DP on the
+# same ranks) leave all but a few weights within 1e-6 of each other: the
+# runs read 0.9995 (H100 80GB HBM3, 700 W), the rest a
+# gradient near 0 whose sign the card's nondeterministic backward flips.
+# A ZeRO-1 block applied to the wrong parameters moves about half of them.
+MC_SAME_UPDATE_NEAR = 0.999
+
+
+def mc_bf16_zero_atol(one_card: dict, exact: dict) -> float:
+    """grad_agreement's bar for the leaves whose fp64 gradient is 0 (biases
+    ahead of a train-mode BatchNorm), in a bf16 step: the bf16 rounding the
+    one-card bf16 step leaves there, GRAD_LEAF_RATIO times as for every
+    other leaf, and at least the fp32 bar (1e-5). A bf16 step leaves
+    bf16-sized residues there (2^-16 = 1.53e-5 on the DP step, H100
+    80GB HBM3, 700 W)."""
+    from calipsync_tpu_torch.kernels.measure import GRAD_LEAF_RATIO
+
+    zeros = [float(one_card[k].abs().max()) for k, g in exact.items()
+             if float(g.double().norm()) < 1e-7]
+    return max(1e-5, GRAD_LEAF_RATIO * max(zeros, default=0.0))
+
+
+def mc_frames(model, data, feats, fmt, mesh=None):
+    """Every frame of one FrameSynthesizer request (uint8, stacked) and its
+    wall seconds."""
+    from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
+
+    synth = FrameSynthesizer(None, data, model=model, batch_size=BATCH,
+                             seed=0, transfer_format=fmt, mesh=mesh)
+    t0 = time.perf_counter()
+    frames = np.stack([it["frame"] for it in
+                       synth.iterate_synthesized_frames(feats)])
+    wall = time.perf_counter() - t0
+    synth.close()
+    return frames, wall
+
+
+def mc_lsb(a, b, what: str) -> dict:
+    """Frames against the one-card frames at the batch-invariance bound."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    worst, share = int(d.max()), float((d > 0).mean())
+    print(f"{what}: max {worst} uint8 levels, {share:.3g} of values differ "
+          f"(limits {HEAD_BATCH_MAX_LSB}, {HEAD_BATCH_MAX_SHARE})")
+    check(a.shape == b.shape and worst <= HEAD_BATCH_MAX_LSB
+          and share <= HEAD_BATCH_MAX_SHARE, f"{what}: frames differ")
+    return {"max_lsb": worst, "share": share}
+
+
+def mc_step(torch, sd, batch, feats, dtype, mesh=None, zero1=False,
+            ops="kernels", params=None):
+    """One host-batch train step (B=16 global, no perceptual term) from
+    ``sd``: loss, gradients, state after (CPU fp32), and the second
+    step's ms (the first pays the card's warm-up). Under ZeRO-1 a
+    parameter's ``.grad`` is the rank's own; the mean gradient is read
+    from the gathered first moment, (1 - b1) g after the first step."""
+    from calipsync_tpu_torch.config import TrainConfig
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.train import trainer
+
+    pdt = params or torch.float32
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, zero1=zero1)
+    model = Generator(dtype=dtype, ops=ops)
+    model.load_state_dict(sd, strict=True)
+    model.to("cuda", pdt)
+    state = (trainer.create_zero1_state(model, tcfg, mesh) if zero1
+             else trainer.create_train_state(model, tcfg))
+    step = trainer.make_train_step(tcfg, mesh)
+    f = torch.from_numpy(feats).to("cuda", pdt)
+    m = step(state, batch, f)
+    loss = float(m["loss"])
+    if zero1:
+        moments = state.optimizer.state_dict()["state"]  # every rank
+        grads = {n: moments[i]["exp_avg"].float().cpu() / 0.1
+                 for i, (n, _) in enumerate(model.named_parameters())}
+    else:
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in model.named_parameters()}
+    after = {k: v.detach().float().cpu()
+             for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, f)
+    torch.cuda.synchronize()
+    return dict(loss=loss, grads=grads, state=after,
+                ms=(time.perf_counter() - t0) * 1e3, step=state)
+
+
+def mc_same_step(torch, got: dict, ref: dict, what: str, loss_rtol: float,
+                 exact=None, bn_rtol: float = 1e-3,
+                 min_near: float = 0.0, zero_atol: float = 1e-5) -> dict:
+    """A step against the one-card step: the loss, BatchNorm statistics,
+    every weight within Adam's first-step envelope (up to 2 lr where the
+    gradients' signs differ: fp32 gradients of this random network carry
+    percents of rounding noise, and two runs of one step on the card
+    differ as much, phase 7b), at least ``min_near`` of the weights within
+    1e-6 (MC_SAME_UPDATE_NEAR where both steps apply one update to the same
+    gradients), and, with an fp64 yardstick, every gradient leaf
+    (grad_agreement: as close to fp64 as the one-card step's; a leaf whose
+    fp64 gradient is 0 within ``zero_atol``, mc_bf16_zero_atol in bf16).
+    ``bn_rtol``: the statistics' bar, 1e-3 (the repo's) in fp32; in bf16
+    rounding flips compound over the blocks (GEN_BF16_*)."""
+    from calipsync_tpu_torch.kernels.measure import grad_agreement
+
+    check(abs(got["loss"] - ref["loss"]) <= loss_rtol * abs(ref["loss"]),
+          f"{what}: loss {got['loss']} against {ref['loss']}")
+    worst_w, near, total, worst_bn = 0.0, 0, 0, 0.0
+    for k, r in ref["state"].items():
+        d = (got["state"][k] - r).abs()
+        if k.endswith(("running_mean", "running_var")):
+            # the repo's bar, its absolute part a share of the buffer's rms
+            # (running means sit near 0)
+            lim = bn_rtol * (r.pow(2).mean().sqrt() + r.abs()) + 1e-7
+            worst_bn = max(worst_bn, float((d / lim).max()))
+        elif not k.endswith("num_batches_tracked"):
+            worst_w = max(worst_w, float(d.max()))
+            near += int((d <= 1e-6).sum())
+            total += d.numel()
+    res = dict(loss=got["loss"], ref_loss=ref["loss"], max_weight_diff=
+               worst_w, weights_within_1e6=near / total,
+               bn_share_of_bar=worst_bn)
+    line = (f"{what}: loss {got['loss']:.6f} vs {ref['loss']:.6f}; weights "
+            f"max diff {worst_w:.3g} (envelope {2 * MC_LR:g}), "
+            f"{near / total:.5f} within 1e-6; BN statistics at "
+            f"{worst_bn:.3g} of the bar")
+    if exact is not None:
+        agree = grad_agreement(got["grads"], ref["grads"], exact,
+                               zero_atol=zero_atol)
+        zero = max((v[0] for v in agree["zeros"].values()), default=0.0)
+        zero_ref = max((v[1] for v in agree["zeros"].values()), default=0.0)
+        res.update(rms=agree["rms"], rms_one_card=agree["rms_plain"],
+                   zero_leaves_max=zero, zero_leaves_max_one_card=zero_ref)
+        line += (f"; gradients' rms error to fp64 {agree['rms']:.3g} "
+                 f"(one card {agree['rms_plain']:.3g}), leaves with a zero "
+                 f"fp64 gradient at most {zero:.3g} (one card "
+                 f"{zero_ref:.3g}, bar {zero_atol:.3g})")
+    print(line)
+    check(worst_w <= 2 * MC_LR * (1 + 1e-3) + 1e-5,
+          f"{what}: weights outside Adam's envelope")
+    check(near / total >= min_near, f"{what}: {near / total:.5f} of the "
+                                    f"weights within 1e-6, under {min_near}")
+    check(worst_bn <= 1, f"{what}: BatchNorm statistics differ")
+    if exact is not None:
+        check(agree["ok"], f"{what}: gradients disagree: "
+                           + "; ".join(agree["bad"][:5]))
+    return res
+
+
+def mc_rank(data: str, hubert_dir: str, seed: int) -> dict:
+    """(12b) One of two gloo ranks sharing the card: every parallel path at
+    full width, each held against the one-card run that rank 0 makes
+    itself; the kernel launches of the parallel paths only."""
+    import torch
+
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.audio.hubert_pipeline import load_hf_checkpoint
+    from calipsync_tpu_torch.core import mesh as meshlib
+    from calipsync_tpu_torch.core.ep import (init_moe_params, moe_ffn,
+                                             moe_ffn_ep)
+    from calipsync_tpu_torch.core.weights import (from_jax_generator,
+                                                  random_jax_generator)
+    from calipsync_tpu_torch.dryrun import run_sections
+    from calipsync_tpu_torch.kernels.measure import (max_err,
+                                                     random_generator,
+                                                     tol_text)
+    from calipsync_tpu_torch.serve.multi_stream import MultiStreamSynthesizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = meshlib.make_mesh(data=2)
+    emesh = meshlib.make_named_mesh((2,), ("expert",))
+    rank = meshlib.process_index()
+    lead = rank == 0
+    res: dict = {"seconds": {}, "launches": {}}
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        res["seconds"][name] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+
+    def counted(name, fn):
+        kernels.reset_launches()
+        value = fn()
+        torch.cuda.synchronize()
+        res["launches"][name] = kernels.launch_counts()
+        return value
+
+    # sharded serving at B=128 (64 rows a rank), bgr
+    model = random_generator(torch.bfloat16)
+    rng = np.random.default_rng(seed + 120)
+    feats = rng.standard_normal((MC_ROWS, 2, 1024)).astype(np.float32)
+    mc_frames(model, data, feats[:BATCH], "bgr", mesh)  # warm-up
+    frames, wall = counted("serve", lambda: mc_frames(model, data, feats,
+                                                       "bgr", mesh))
+    res["serve_fps"] = MC_ROWS / wall
+    if lead:
+        one, _ = mc_frames(model, data, feats, "bgr")
+        res["serve"] = mc_lsb(frames, one, "12b sharded serving (2 ranks)")
+    res["serve_hash"] = hashlib.sha1(frames.tobytes()).hexdigest()
+    part("serving")
+
+    # one MultiStreamSynthesizer(mesh=) tick
+    ids = [f"s{i}" for i in range(MC_STREAMS)]
+    tick = {sid: rng.standard_normal((MS_WINDOW, 2, 1024)).astype(
+        np.float32) for sid in ids}
+
+    def ms_tick(m):
+        ms = MultiStreamSynthesizer(None, [data], model=model,
+                                    batch_size=BATCH, mesh=m)
+        for sid in ids:
+            ms.add_stream(sid)
+        got = ms.synthesize_windows(tick)
+        ms.close()
+        return np.stack([f["frame"] for sid in ids for f in got[sid]])
+
+    ms_frames = counted("multistream", lambda: ms_tick(mesh))
+    if lead:
+        res["multistream"] = mc_lsb(ms_frames, ms_tick(None),
+                                    "12b multi-stream tick (2 ranks)")
+    part("multistream")
+    del model, frames, ms_frames
+    torch.cuda.empty_cache()
+
+    # data-parallel steps, 8 + 8 rows with sync-BN, against one card at 16
+    batch, tfeats = train_batch(6)
+    sd = from_jax_generator(random_jax_generator(seed=0))
+    steps = {}
+    if lead:
+        steps["one64"] = mc_step(torch, sd, batch, tfeats, torch.float64,
+                                 ops="plain", params=torch.float64)
+        for dt in (torch.float32, torch.bfloat16):
+            steps[f"one_{str(dt)[6:]}"] = mc_step(torch, sd, batch, tfeats,
+                                                  dt)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        steps[f"dp_{name}"] = counted(f"dp_{name}", lambda: mc_step(
+            torch, sd, batch, tfeats, dt, mesh))
+    steps["zero1"] = counted("zero1", lambda: mc_step(
+        torch, sd, batch, tfeats, torch.float32, mesh, zero1=True))
+    res["dp_step_ms"] = {k: steps[k]["ms"] for k in
+                         ("dp_float32", "dp_bfloat16", "zero1")}
+    if lead:
+        exact = steps["one64"]["grads"]
+        res["dp"] = {
+            "float32": mc_same_step(torch, steps["dp_float32"],
+                                    steps["one_float32"],
+                                    "12b DP fp32 (8+8 rows)", 1e-4, exact),
+            "bfloat16": mc_same_step(torch, steps["dp_bfloat16"],
+                                     steps["one_bfloat16"],
+                                     "12b DP bf16 (8+8 rows)", 1e-2, exact,
+                                     bn_rtol=MC_BF16_BN_RTOL,
+                                     zero_atol=mc_bf16_zero_atol(
+                                         steps["one_bfloat16"]["grads"],
+                                         exact)),
+            "zero1": mc_same_step(torch, steps["zero1"], steps["dp_float32"],
+                                  "12b ZeRO-1 against DP (fp32)", 1e-4,
+                                  exact, min_near=MC_SAME_UPDATE_NEAR)}
+        kept = steps["zero1"]["step"].optimizer.moment_bytes()
+        full = sum(p.numel() * 8 for p in steps["one_float32"][
+            "step"].model.parameters())
+        res["zero1_moment_bytes"] = [kept, full]
+        print(f"12b ZeRO-1: {kept} bytes of Adam moments a rank, the mean "
+              f"path {full}")
+        check(full / 2 <= kept <= full / 2 + 8, "ZeRO-1 keeps its half")
+    del steps
+    torch.cuda.empty_cache()
+    part("data parallel, zero1")
+
+    # TP and PP HuBERT-large on one 20 s chunk against one card
+    wav = np.random.default_rng(seed + 121).standard_normal(
+        MC_CHUNK).astype(np.float32) * 0.1
+    if lead:
+        ref = torch.from_numpy(load_hf_checkpoint(
+            hubert_dir).extract_features(wav))
+    for mode in ("tp", "pp"):
+        ex = load_hf_checkpoint(hubert_dir, mesh=meshlib.make_named_mesh(
+            (2,), ("model",)), parallel=mode)
+        got = torch.from_numpy(ex.extract_features(wav))
+        del ex
+        if lead:
+            err, ok = max_err(got, ref, HUBERT_CPU_TOL)
+            print(f"12b HuBERT-large {mode} (2 ranks), a 20 s chunk "
+                  f"{tuple(got.shape)}: max abs err {err:.3g} "
+                  f"({tol_text(HUBERT_CPU_TOL)})")
+            check(got.shape == ref.shape and ok, f"HuBERT {mode} disagrees")
+            res[f"hubert_{mode}_err"] = err
+    torch.cuda.empty_cache()
+    part("tp, pp hubert")
+
+    # EP at HuBERT-large width against the one-device math
+    params = {k: v.cuda() for k, v in init_moe_params(
+        1024, 4096, MC_EXPERTS, seed=seed).items()}
+    tok = torch.from_numpy(np.random.default_rng(seed + 122).standard_normal(
+        (MC_TOKENS, 1024)).astype(np.float32)).cuda()
+    got = moe_ffn_ep(params, tok, emesh)
+    if lead:
+        err, ok = max_err(got, moe_ffn(params, tok, groups=2), MC_TOL)
+        print(f"12b EP, {MC_EXPERTS} experts of 1024x4096 over 2 ranks, "
+              f"{MC_TOKENS} tokens: max abs err {err:.3g} "
+              f"({tol_text(MC_TOL)})")
+        check(ok, "EP disagrees with moe_ffn")
+        res["ep_err"] = err
+    del params
+    part("ep")
+
+    res["dryrun"] = counted("dryrun", lambda: run_sections(2, "cuda"))
+    part("dryrun_multichip(2)")
+    return res
+
+
+def multi_card(torch, assets, seed: int, out: dict) -> dict:
+    """(12) Many cards. (a) NCCL at world size 1 on this card, the
+    production backend: build_mesh, FrameSynthesizer(mesh=) bgr and yuv420
+    frames equal to the unsharded ones, a DP step with sync-BN and a
+    ZeRO-1 step against the one-card step. (b) two gloo ranks spawned on
+    this card (NCCL refuses two ranks on one device): mc_rank. Returns
+    the launch counts of each parallel path."""
+    import torch.distributed as dist
+
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.config import MeshConfig
+    from calipsync_tpu_torch.core import mesh as meshlib
+    from calipsync_tpu_torch.core.weights import (from_jax_generator,
+                                                  random_jax_generator)
+
+    res = out["multi_card"] = {"seconds": {}}
+    paths = {}
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(f"compute mode: {mode}")
+    res["compute_mode"] = mode
+    check(mode.splitlines()[0].strip() == "Default",
+          f"the card's compute mode is {mode!r}: 12b runs two processes on "
+          "it and needs 'Default'")
+
+    t0 = time.perf_counter()
+    model, data = assets["model"], assets["data"]
+    feats = np.random.default_rng(seed + 120).standard_normal(
+        (MC_ROWS, 2, 1024)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = meshlib.build_mesh(MeshConfig())
+            check(mesh.axis_names == ("data",) and mesh.size == 1
+                  and dist.get_backend() == "nccl", f"12a mesh {mesh.shape}")
+            for fmt in ("bgr", "yuv420"):
+                mc_frames(model, data, feats[:BATCH], fmt, mesh)  # warm-up
+                one, one_wall = mc_frames(model, data, feats, fmt)
+                kernels.reset_launches()
+                got, wall = mc_frames(model, data, feats, fmt, mesh)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                expect_forwards(counts, f"12a sharded serving {fmt}", 2)
+                paths[f"12a_serve_{fmt}"] = counts
+                check(np.array_equal(got, one),
+                      f"12a sharded {fmt} frames differ from unsharded")
+                res[f"serve_fps_{fmt}"] = [MC_ROWS / wall, MC_ROWS / one_wall]
+                print(f"12a sharded serving {fmt} (NCCL, 1 rank): "
+                      f"{MC_ROWS} frames equal to unsharded; "
+                      f"{MC_ROWS / wall:.1f} fps (unsharded "
+                      f"{MC_ROWS / one_wall:.1f})")
+            # fp32 steps against fp64 hold true fp32: TF32 off, as in 7b
+            flags = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            batch, tfeats = train_batch(6)
+            sd = from_jax_generator(random_jax_generator(seed=0))
+            exact = mc_step(torch, sd, batch, tfeats, torch.float64,
+                            ops="plain", params=torch.float64)["grads"]
+            one = mc_step(torch, sd, batch, tfeats, torch.float32)
+            for zero1 in (False, True):
+                name = "zero1" if zero1 else "dp"
+                kernels.reset_launches()
+                got = mc_step(torch, sd, batch, tfeats, torch.float32, mesh,
+                              zero1=zero1)
+                torch.cuda.synchronize()
+                paths[f"12a_{name}"] = kernels.launch_counts()
+                res[f"{name}_step_ms"] = [got["ms"], one["ms"]]
+                res[name] = mc_same_step(torch, got, one,
+                                         f"12a {name} (NCCL, 1 rank, fp32)",
+                                         1e-6, exact,
+                                         min_near=MC_SAME_UPDATE_NEAR)
+            del one, got, exact
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["seconds"]["12a"] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    ranks = meshlib.launch(mc_rank, 2, data, assets["hubert"], seed,
+                           backend="gloo")
+    res["seconds"]["12b"] = round(time.perf_counter() - t0, 1)
+    check(ranks[0]["serve_hash"] == ranks[1]["serve_hash"],
+          "12b: the ranks returned different frames")
+    for r, rr in enumerate(ranks):
+        total = {k: sum(c[k] for c in rr["launches"].values())
+                 for k in KERNEL_INFO}
+        print(f"12b rank {r}: launches {total} ({rr['launches']}), parts "
+              f"{rr['seconds']}")
+        check(all(total.values()), f"12b rank {r} did not launch every "
+                                   f"kernel: {total}")
+        paths[f"12b_rank{r}"] = total
+    lead = ranks[0]
+    res["12b"] = {k: v for k, v in lead.items() if k != "serve_hash"}
+    print(f"12b: sharded serving {lead['serve_fps']:.1f} fps a rank's "
+          f"request (2 ranks on one card); DP step ms {lead['dp_step_ms']}; "
+          f"12a + 12b {res['seconds']}")
+    return paths
+
+
 def print_kernel_resources(_build):
     """Each compiled kernel's registers, static shared memory, spills and
     any performance warning (from ptxas -v in build/nvcc.log), and the
@@ -3393,6 +3845,8 @@ def main() -> int:
                                 os.path.join(work, "eval")))
         paths.update(tools(torch, assets, args.seed, metrics,
                            os.path.join(work, "tools")))
+        with phase("12 many cards"):
+            paths.update(multi_card(torch, assets, args.seed, metrics))
 
     kernels_line = []
     for name, (source, replaces) in KERNEL_INFO.items():

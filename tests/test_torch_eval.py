@@ -14,6 +14,7 @@ JAX function is traced once in the module.
 import itertools
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import numpy as np
@@ -227,23 +228,27 @@ def test_syncnet_train_step_matches_jax():
         return (jsync.cosine_bce_loss(a, f, jnp.ones((2,), jnp.float32)),
                 upd["batch_stats"])
 
-    (ref_loss, ref_stats), ref_grads = jax.jit(jax.value_and_grad(
-        loss_fn, has_aux=True))(variables["params"])
-    ref = from_jax_syncnet({"params": ref_grads, "batch_stats": ref_stats})
-
     grads, losses = {}, {}
-    for dt in (torch.float32, torch.float64):
-        model = _port_syncnet(variables, mode).train().to(dt)
-        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-        step = syncnet_trainer.make_step(model, opt,
-                                         torch.from_numpy(feats).to(dt), mode)
-        losses[dt] = float(step(torch.from_numpy(face_u8),
-                                torch.from_numpy(idx)))
-        grads[dt] = {n: p.grad for n, p in model.named_parameters()}
-        if dt == torch.float32:
-            for name, buf in model.named_buffers():
-                if name.endswith(("running_mean", "running_var")):
-                    _close(buf, ref[name], msg=name)
+    # JAX compiles and steps on a thread of its own while the port steps
+    # here (XLA and torch release the GIL while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True)), variables["params"])
+        for dt in (torch.float32, torch.float64):
+            model = _port_syncnet(variables, mode).train().to(dt)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            step = syncnet_trainer.make_step(
+                model, opt, torch.from_numpy(feats).to(dt), mode)
+            losses[dt] = float(step(torch.from_numpy(face_u8),
+                                    torch.from_numpy(idx)))
+            grads[dt] = {n: p.grad for n, p in model.named_parameters()}
+            if dt == torch.float32:
+                stats = {name: buf for name, buf in model.named_buffers()
+                         if name.endswith(("running_mean", "running_var"))}
+        (ref_loss, ref_stats), ref_grads = pending.result()
+    ref = from_jax_syncnet({"params": ref_grads, "batch_stats": ref_stats})
+    for name, buf in stats.items():
+        _close(buf, ref[name], msg=name)
     _close(losses[torch.float32], ref_loss)
     _close(losses[torch.float64], ref_loss)
     theirs = {n: torch.from_numpy(np.array(ref[n]))
@@ -265,11 +270,16 @@ def test_train_sync_net_matches_jax(synthetic_step1_dir, tmp_path):
     pth = tmp_path / "init.pth"
     torch.save(from_jax_syncnet(_jax_init("hubert")), pth)
     kw = dict(mode="hubert", batch_size=4, epochs=1, seed=0)
-    ref = list(itertools.islice(jtrainer.train_sync_net(
-        str(tmp_path / "jax"), str(synthetic_step1_dir), **kw), 2))
-    ours = list(itertools.islice(syncnet_trainer.train_sync_net(
-        str(tmp_path / "port"), str(synthetic_step1_dir),
-        base_last_model=str(pth), device="cpu", **kw), 2))
+    # JAX trains on a thread of its own while the port trains here (XLA
+    # and torch release the GIL while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(lambda: list(itertools.islice(
+            jtrainer.train_sync_net(str(tmp_path / "jax"),
+                                    str(synthetic_step1_dir), **kw), 2)))
+        ours = list(itertools.islice(syncnet_trainer.train_sync_net(
+            str(tmp_path / "port"), str(synthetic_step1_dir),
+            base_last_model=str(pth), device="cpu", **kw), 2))
+        ref = pending.result()
     assert [r[:4] for r in ours] == [r[:4] for r in ref] == [
         (0, 7, 0, 1), (1, 7, 0, 1)]
     _close([r[4] for r in ours], [r[4] for r in ref])

@@ -7,6 +7,7 @@ where the port's kernel wrappers take their plain versions. Tolerance: the
 repo's bar, rtol 1e-3 / atol 1e-5 (CLAUDE.md "Conventions").
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -67,6 +68,13 @@ def hubert_pair():
     return model, _to_numpy_tree(_randomize(variables, seed=3))
 
 
+@pytest.fixture(scope="module")
+def jax_apply(hubert_pair):
+    """The eval-mode JAX forward, jitted once for the module's recipes."""
+    jmodel, _ = hubert_pair
+    return jax.jit(lambda v, x, a: jmodel.apply(v, x, a, train=False))
+
+
 def test_from_jax_generator_matches_export_and_loads_strict(hubert_pair):
     _, variables = hubert_pair
     sd = from_jax_generator(variables, mode="hubert", n_blocks=4)
@@ -87,26 +95,30 @@ def test_random_jax_generator_has_the_jax_layout(hubert_pair):
 
 
 @pytest.mark.parametrize("recipe", ["export_test", "scaled"])
-def test_generator_matches_jax_fp32(hubert_pair, recipe):
+def test_generator_matches_jax_fp32(hubert_pair, jax_apply, recipe):
     """``export_test``: the weights of tests/test_weights_export.py, under
     which each block shrinks the signal, so the output mostly sees the last
     decoder stage. ``scaled``: ``random_jax_generator``'s weights, under
     which the audio and the attention reach the output."""
-    jmodel, variables = hubert_pair
+    _, variables = hubert_pair
     if recipe == "scaled":
         variables = random_jax_generator(seed=4)
     rng = np.random.default_rng(11)
     x = rng.random((2, 160, 160, 6), dtype=np.float32)
     a = rng.standard_normal((2, 32, 32, 32)).astype(np.float32)
 
-    apply = jax.jit(lambda v, x, a: jmodel.apply(v, x, a, train=False))
-    ref = np.asarray(apply(variables, jnp.asarray(x), jnp.asarray(a)))
-
-    model = torch_unet.Generator(mode="hubert").eval()
-    model.load_state_dict(from_jax_generator(variables), strict=True)
-    with torch.inference_mode():
-        out = model(torch.from_numpy(x), torch.from_numpy(a)).numpy()
-        silent = model(torch.from_numpy(x), torch.zeros(a.shape)).numpy()
+    # JAX runs on a thread of its own while the port runs here (XLA and
+    # torch release the GIL while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(jax_apply, variables, jnp.asarray(x),
+                              jnp.asarray(a))
+        model = torch_unet.Generator(mode="hubert").eval()
+        model.load_state_dict(from_jax_generator(variables), strict=True)
+        with torch.inference_mode():
+            out = model(torch.from_numpy(x), torch.from_numpy(a)).numpy()
+            silent = model(torch.from_numpy(x),
+                           torch.zeros(a.shape)).numpy()
+        ref = np.asarray(pending.result())
 
     assert out.shape == (2, 160, 160, 3) and out.dtype == np.float32
     # a sigmoid stuck at 0 or 1 would match trivially

@@ -286,5 +286,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             HubertFeatureExtractor(None, cfg, device=device)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HubertFeatureExtractor(None, cfg, device="cpu", parallel="tp")
+    # a mesh names its parallel mode: an unknown one raises
+    with pytest.raises(ValueError, match="parallel mode"):
+        HubertFeatureExtractor(None, cfg, device="cpu", mesh=object(),
+                               parallel="sp")

@@ -9,6 +9,7 @@ import inspect
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import numpy as np
@@ -98,23 +99,34 @@ def offline_runs(synthetic_step3_dir, tmp_path_factory):
     wav = _wav(d / "clip.wav", N_FRAMES * 0.04, 180)
     data = str(synthetic_step3_dir)
     runs = {}
-    synth = jax_synth.FrameSynthesizer(variables, data, model=JaxGenerator(),
-                                       batch_size=4, seed=0,
-                                       transfer_format="bgr")
-    frames = _recorded(synth)
-    out = JaxVideoStreamManager(synth, _StubHubert(), pipelined=False
-                                ).process_single_file(wav, str(d / "j.mp4"))
-    runs["jax"] = (out, frames)
-    sd = from_jax_generator(variables)
-    for name, pipelined in (("seq", False), ("pipe", True)):
-        synth = FrameSynthesizer(sd, data, batch_size=4, seed=0,
-                                 transfer_format="bgr", device="cpu")
+
+    def jax_run():
+        synth = jax_synth.FrameSynthesizer(variables, data,
+                                           model=JaxGenerator(),
+                                           batch_size=4, seed=0,
+                                           transfer_format="bgr")
         frames = _recorded(synth)
-        mgr = VideoStreamManager(synth, _StubHubert(), pipelined=pipelined,
-                                 span_rows=4 if pipelined else None)
-        out = mgr.process_single_file(wav, str(d / f"{name}.mp4"))
-        synth.close()
-        runs[name] = (out, frames)
+        out = JaxVideoStreamManager(synth, _StubHubert(), pipelined=False
+                                    ).process_single_file(wav,
+                                                          str(d / "j.mp4"))
+        return out, frames
+
+    # the JAX manager runs on a thread of its own while the port's run
+    # here (XLA and torch release the GIL while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(jax_run)
+        sd = from_jax_generator(variables)
+        for name, pipelined in (("seq", False), ("pipe", True)):
+            synth = FrameSynthesizer(sd, data, batch_size=4, seed=0,
+                                     transfer_format="bgr", device="cpu")
+            frames = _recorded(synth)
+            mgr = VideoStreamManager(synth, _StubHubert(),
+                                     pipelined=pipelined,
+                                     span_rows=4 if pipelined else None)
+            out = mgr.process_single_file(wav, str(d / f"{name}.mp4"))
+            synth.close()
+            runs[name] = (out, frames)
+        runs["jax"] = pending.result()
     runs["wav"] = wav
     return runs
 
@@ -279,9 +291,14 @@ def test_load_config_matches_jax(tmp_path):
     assert dataclasses.asdict(config.load_config().infer) == \
         dataclasses.asdict(jax_config.load_config().infer)
     assert config.load_config().infer.transfer_format == "adaptive"
-    for bad in ({"mesh": {"model": 2}}, {"mesh": {"dcn": 2}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config.load_config(overrides=bad)
+    # the mesh section loads as the JAX one (its ranks are checked where
+    # a command builds its mesh); an unknown HuBERT mode raises
+    mesh = {"model": 2, "dcn": 2, "hubert_parallel": "pp"}
+    assert dataclasses.asdict(config.load_config(
+        overrides={"mesh": mesh}).mesh) == dataclasses.asdict(
+            jax_config.MeshConfig(**mesh))
+    with pytest.raises(ValueError, match="hubert_parallel"):
+        config.load_config(overrides={"mesh": {"hubert_parallel": "sp"}})
 
 
 def test_cli_featurize_on_cpu(tmp_path, capsys, monkeypatch):
