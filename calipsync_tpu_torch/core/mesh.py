@@ -27,6 +27,7 @@ import os
 import pickle
 import sys
 import tempfile
+import time
 import traceback
 import warnings
 from dataclasses import dataclass
@@ -404,14 +405,25 @@ def all_mean_with_grad(t: torch.Tensor, mesh: Mesh,
 
 # --------------------------------------------------------------- launcher
 
+# the bytes of a rank's output that a launch error quotes: its last ones
+_LOG_TAIL = 4000
+
+
 def _rank_main(rank: int, fn, args, world: int, init: str, backend: str,
-               out_dir: str) -> None:
+               out_dir: str, dist_timeout_s: float) -> None:
+    # the rank's output goes to its own file, which the parent prints (and
+    # quotes the end of when a rank fails or the wait runs out)
+    log = os.open(os.path.join(out_dir, f"rank{rank}.log"),
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(log, 1)
+    os.dup2(log, 2)
     torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(rank)
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank,
-                            timeout=datetime.timedelta(seconds=600))
+                            timeout=datetime.timedelta(
+                                seconds=dist_timeout_s))
     try:
         result = fn(*args)
         err = None
@@ -424,34 +436,99 @@ def _rank_main(rank: int, fn, args, world: int, init: str, backend: str,
     if err is None:
         dist.barrier()
     dist.destroy_process_group()
-    if err is not None:
-        raise RuntimeError(f"rank {rank} failed:\n{err}")
+    sys.stdout.flush()
+    sys.stderr.flush()
     # the result is on disk: leave without the interpreter's teardown, so
     # that a native library's destructor or a library's leftover thread
     # cannot turn a finished rank into a failed one
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    os._exit(1 if err is not None else 0)
 
 
-def launch(fn: Callable, n: int, *args, backend: str = "gloo") -> list:
+def _tail(path: str) -> str:
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - _LOG_TAIL))
+            return f.read().decode(errors="replace")
+    except FileNotFoundError:
+        return ""
+
+
+def launch(fn: Callable, n: int, *args, backend: str = "gloo",
+           timeout_s: float = 3600.0, dist_timeout_s: float = 600.0
+           ) -> list:
     """Run ``fn(*args)`` on ``n`` new ranks joined by a ``file://`` group
     and return each rank's result, in rank order. ``fn`` must be a
     module-level function of an importable module (the ranks are spawned
     interpreters); its results travel back pickled, so return numpy
-    arrays or CPU tensors. A rank's exception is raised here with its
-    traceback. Each rank runs on one intra-op thread; with
-    ``backend="nccl"`` rank r takes card r."""
-    import torch.multiprocessing as mp
+    arrays or CPU tensors. Each rank runs on one intra-op thread; with
+    ``backend="nccl"`` rank r takes card r.
 
+    Every wait is bounded. A collective waits at most ``dist_timeout_s``
+    for its peers (the process group's timeout), and the ranks together
+    at most ``timeout_s``. When a rank fails, the others get a few
+    seconds to fail with it and are then killed; when ``timeout_s`` runs
+    out, every rank is killed. Either raises, with each rank's exit code
+    and the end of its output (a rank's exception raises with its
+    traceback). The ranks' output is printed here when they end."""
+    import multiprocessing
+    import multiprocessing.connection
+
+    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="calipsync_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main, daemon=False,
+                             args=(r, fn, args, n, init, backend, tmp,
+                                   dist_timeout_s))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        failed, timed_out = None, False  # failed: the first rank to fail
         try:
-            mp.start_processes(
-                _rank_main, nprocs=n, join=True, start_method="spawn",
-                args=(fn, args, n, init, backend, tmp))
-        except mp.ProcessRaisedException as e:
-            raise RuntimeError(str(e)) from None
+            running = {p.sentinel: r for r, p in enumerate(procs)}
+            while running and failed is None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    timed_out = True
+                    break
+                for s in multiprocessing.connection.wait(list(running),
+                                                         timeout=left):
+                    r = running.pop(s)
+                    procs[r].join()
+                    if procs[r].exitcode != 0 and failed is None:
+                        failed = r
+            if failed is not None:  # the others fail on broken connections
+                grace = time.monotonic() + 10.0
+                for p in procs:
+                    p.join(max(0.0, grace - time.monotonic()))
+        finally:
+            killed = [r for r, p in enumerate(procs) if p.is_alive()]
+            for r in killed:
+                procs[r].kill()
+                procs[r].join()
+        logs = [_tail(os.path.join(tmp, f"rank{r}.log")) for r in range(n)]
+        if timed_out or failed is not None:
+            path = os.path.join(tmp, f"rank{failed}.pkl")
+            if failed is not None and os.path.exists(path):
+                with open(path, "rb") as f:
+                    _, err = pickle.load(f)
+                raise RuntimeError(f"rank {failed} failed:\n{err}")
+            what = (f"did not end within {timeout_s:g} s" if timed_out
+                    else f"failed: rank {failed} exited first")
+            raise RuntimeError(
+                f"launch of {n} ranks {what}; exit codes "
+                f"{[p.exitcode for p in procs]}, killed here: ranks "
+                f"{killed}\n" + "\n".join(
+                    f"--- rank {r}, the end of its output:\n{t}"
+                    for r, t in enumerate(logs)))
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.log"), errors="replace"
+                      ) as f:
+                text = f.read()
+            if text:
+                print(f"--- rank {r}:\n{text}", end="" if
+                      text.endswith("\n") else "\n")
         results = []
         for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

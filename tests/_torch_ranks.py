@@ -22,6 +22,13 @@ from calipsync_tpu_torch.nn.unet import Generator
 from calipsync_tpu_torch.train import trainer
 
 N_BLOCKS = 1
+# Bounds on the ranks' waits (core.mesh.launch), so that a hang fails one
+# test in minutes instead of holding the suite: the whole group's (the
+# mesh file's ranks run ~60 s alone, ~120 s under the tier-1 command's
+# load), and a collective's for a peer (the longest a rank waits at a
+# collective for the others' work is ~13 s alone).
+LAUNCH_TIMEOUT_S = 360
+COLLECTIVE_TIMEOUT_S = 120
 
 
 def _np(t) -> np.ndarray:
@@ -118,10 +125,11 @@ def _multistream(state_dict, speaker_dirs, ticks, mesh=None):
 def mesh_cases(a: dict) -> dict:
     """Serving, data-parallel training, ZeRO-1, the hybrid mesh and a
     2-rank checkpoint (tests/test_torch_mesh.py). Ranks 0-1 train on a
-    2-rank mesh (fp32, ZeRO-1, fp64) and then serve without a mesh, while
-    ranks 2-3 serve on theirs and then run the one-rank fp64 step (rank
-    2); ranks 0-1 then write the checkpoint, and all four run the hybrid
-    and the flat mesh.
+    2-rank mesh (fp32, ZeRO-1, fp64), while
+    ranks 2-3 serve on theirs and then run the one-rank yardsticks: the
+    fp64 step (rank 2), the unsharded serving and multi-stream (rank 3);
+    the two pairs take about as long. Ranks 0-1 then write the
+    checkpoint, and all four run the hybrid and the flat mesh.
     Comparisons of two port results on one rank ship as
     :func:`allclose_ratio` at the repo's bar (rtol 1e-3 / atol 1e-5)."""
     from calipsync_tpu_torch import cli
@@ -165,16 +173,10 @@ def mesh_cases(a: dict) -> dict:
                                             "step")}
             out["dp64"] = {k: dp64[k] for k in ("metrics", "state",
                                                 "grads")}
-            # the unsharded serving
-            out["one_frames"] = {fmt: _serve_frames(sd, a["speakers"][0],
-                                                    a["features"], fmt)
-                                 for fmt in ("bgr", "yuv420")}
             out["zero1"]["state"] = allclose_ratio(
                 zero1["state"], dp["state"], 1e-3, 1e-5)
             out["zero1"]["opt"] = _opt_compare(zero1["opt"], dp["opt"])
             out["zero1"]["reload"] = reload
-        else:
-            out["one_ticks"] = _multistream(sd, a["speakers"], a["ticks"])
     else:
         # serving on ranks 2-3: the sharded step's rows, the
         # synthesizers' frames, two multi-stream ticks, the refusals
@@ -221,6 +223,11 @@ def mesh_cases(a: dict) -> dict:
                                                {"out": _np(one)}, 1e-3,
                                                1e-5)["out"]
             out["eval_shape"] = tuple(got.shape)
+        if rank == 3:  # the unsharded serving and multi-stream
+            out["one_frames"] = {fmt: _serve_frames(sd, a["speakers"][0],
+                                                    a["features"], fmt)
+                                 for fmt in ("bgr", "yuv420")}
+            out["one_ticks"] = _multistream(sd, a["speakers"], a["ticks"])
         if rank == 3:  # what rank 2 returns, as digests
             out["one_rows"] = _np(make_generate_resident_fn(
                 _generator(sd).eval(), CropConfig(), "yuv420", "cpu")(

@@ -171,14 +171,19 @@ def cases(synthetic_step3_dir, tmp_path_factory):
 
     def run():
         try:
-            results["ranks"] = meshlib.launch(ranks.mesh_cases, 4, inputs)
+            results["ranks"] = meshlib.launch(
+                ranks.mesh_cases, 4, inputs,
+                timeout_s=ranks.LAUNCH_TIMEOUT_S,
+                dist_timeout_s=ranks.COLLECTIVE_TIMEOUT_S)
         except BaseException as e:  # raised in the test thread below
             results["error"] = e
 
     t = threading.Thread(target=run)
     t.start()
     ref = _jax_references(variables, inputs)
-    t.join()
+    # launch bounds its own wait; this bounds the thread's, whatever held it
+    t.join(ranks.LAUNCH_TIMEOUT_S + 60)
+    assert not t.is_alive(), "the ranks' launch did not return"
     if "error" in results:
         raise results["error"]
     return inputs, results["ranks"], ref
@@ -231,7 +236,7 @@ def test_sharded_synthesizer_matches_one_rank(cases, fmt):
     """FrameSynthesizer(mesh=) on 2 ranks against the unsharded port: the
     same frames, in order, on both ranks."""
     inputs, out, _ = cases
-    a, one = out[2]["frames"][fmt], out[0]["one_frames"][fmt]
+    a, one = out[2]["frames"][fmt], out[3]["one_frames"][fmt]
     assert a.shape == one.shape == (len(inputs["features"]),) + a.shape[1:]
     assert ranks.digest(out[2]["frames"])[fmt] == out[3]["frames"][fmt]
     _within_bound(a, one, fmt)
@@ -242,7 +247,7 @@ def test_sharded_multistream_matches_one_rank(cases):
     over two speakers (yuv420), against the unsharded port."""
     _, out, _ = cases
     for tick, tick1, one in zip(out[2]["ticks"], out[3]["ticks"],
-                                out[1]["one_ticks"]):
+                                out[3]["one_ticks"]):
         assert tick.keys() == one.keys() == {"a", "b"}
         assert ranks.digest(tick) == tick1
         for sid in tick:

@@ -125,15 +125,19 @@ def cases(tmp_path_factory):
 
     def run():
         try:
-            results["ranks"] = meshlib.launch(ranks.parallel_cases, 4,
-                                              inputs)
+            results["ranks"] = meshlib.launch(
+                ranks.parallel_cases, 4, inputs,
+                timeout_s=ranks.LAUNCH_TIMEOUT_S,
+                dist_timeout_s=ranks.COLLECTIVE_TIMEOUT_S)
         except BaseException as e:  # raised in the test thread below
             results["error"] = e
 
     t = threading.Thread(target=run)
     t.start()
     ref = _jax_references(jcfg, variables, inputs)
-    t.join()
+    # launch bounds its own wait; this bounds the thread's, whatever held it
+    t.join(ranks.LAUNCH_TIMEOUT_S + 60)
+    assert not t.is_alive(), "the ranks' launch did not return"
     if "error" in results:
         raise results["error"]
     return inputs, results["ranks"], ref
