@@ -43,11 +43,7 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's TrainConfig (calipsync_tpu/config.py:52-97), its
-    fields and defaults, but for ``steps_per_dispatch``, JAX's K steps
-    folded into one device dispatch, which a config file may still set
-    (the port reads no key it does not know): the port's step is eager
-    PyTorch, with no dispatch to fold and no host sync a step to save (the
-    losses stay on the card)."""
+    fields and defaults."""
 
     batch_size: int = 16
     lr: float = 1e-3
@@ -65,6 +61,13 @@ class TrainConfig:
     # host decodes each batch (LipSyncDataset + Prefetcher).
     resident_data: bool = True
     resident_max_bytes: int = 4 << 30
+    # K train steps a dispatch on the resident path
+    # (train/trainer.py::make_resident_multi_step): on the card one CUDA
+    # graph of the K steps, replayed once a (K, B) block. 1 = one step a
+    # dispatch. As in the JAX package, an epoch's last n_batches % K
+    # batches are dropped, and an epoch shorter than one block is
+    # wrap-padded to K steps. The streaming path ignores it.
+    steps_per_dispatch: int = 1
     # SIGTERM/SIGINT checkpoint the run at the next batch boundary and
     # return; resume=True redoes that epoch.
     preemption_safe: bool = True

@@ -6,7 +6,8 @@ when its module is imported: the CUDA implementation launches the kernel,
 the CPU one runs the plain version. The CUDA implementation counts its
 launches in a plain integer attribute of the wrapper,
 ``<wrapper>.launches``; a run reads them to show which kernels it went
-through.
+through. The attention's launches inside CUDA graph replays are counted
+there too, and also in ``cross_attention.replayed``.
 """
 
 from .cross_attention import cross_attention
@@ -21,6 +22,7 @@ WRAPPERS = {"fused_ir": fused_inverted_residual,
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    cross_attention.replayed = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -79,12 +79,19 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor,
 
     q, k (B,N,D); v (B,N,C); one dtype, float32 or bfloat16.
     Returns (B,N,C) in v.dtype. ``cross_attention.launches`` counts the
-    kernel's launches (forwards on the card).
+    kernel's launches (forwards on the card). A launch recorded into a CUDA
+    graph runs only when the graph is replayed: it is counted in
+    ``cross_attention.captured`` instead, and the graph's owner adds it to
+    ``launches`` at each replay (train/trainer.py ``_StepGraph``), and to
+    ``cross_attention.replayed``, the share of ``launches`` that replays
+    ran.
     """
     return torch.ops.calipsync.cross_attention.default(q, k, v)
 
 
 cross_attention.launches = 0
+cross_attention.captured = 0
+cross_attention.replayed = 0
 
 
 def _attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -116,7 +123,10 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor,
                 code, b, n, d, c,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "cross_attention")
-    cross_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        cross_attention.captured += 1
+    else:
+        cross_attention.launches += 1
     return out
 
 

@@ -66,6 +66,27 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Raise a kernel's dynamic shared memory limit to `smem` bytes on the
+// current device, once: `limit` holds what was set, one slot a device.
+// cudaFuncSetAttribute is not a stream operation, so it must not run
+// while a CUDA graph is being captured; a capture's warm-up launch at the
+// same size sets it, and the captured launch then calls nothing.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t ensure_smem(Kernel kernel, size_t smem, int* limit) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int* set = dev < kMaxDevices ? &limit[dev] : nullptr;
+  if (set && static_cast<int>(smem) <= *set) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess && set) *set = static_cast<int>(smem);
+  return e;
+}
+
 // ------------------------------------------------------------ bf16: wgmma
 
 namespace bf16_path {
@@ -346,9 +367,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int N, int D, int C, cudaStream_t stream) {
   const auto fn = N > kKeys ? kernel<true> : kernel<false>;
   const size_t smem = smem_bytes(N, D);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static int limit[2][kMaxDevices] = {};
+  const cudaError_t e = ensure_smem(fn, smem, limit[N > kKeys]);
   if (e != cudaSuccess) return static_cast<int>(e);
   auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -507,9 +527,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int N, int D, int C, cudaStream_t stream) {
   const size_t smem = smem_bytes(N, D);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    static int limit[kMaxDevices] = {};
+    const cudaError_t e = ensure_smem(kernel, smem, limit);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((N + kRows - 1) / kRows, B);

@@ -9,6 +9,11 @@ The speaker's crops live on the card (``ResidentLipSyncDataset``) unless
 they would take more than ``train.resident_max_bytes``; then the host
 decodes each batch on a background thread into pinned memory
 (``LipSyncDataset`` + ``Prefetcher``) and the training thread copies it.
+With ``train.steps_per_dispatch`` K > 1 the resident path groups an
+epoch's batches into (K, B) blocks as the JAX package does
+(:func:`dispatch_blocks`) and runs each block as one dispatch
+(``make_resident_multi_step``: on the card one CUDA graph replay); the
+preemption signal is read once a block. The streaming path ignores K.
 Checkpoints are keyed by epoch and resume; every save also writes
 ``generator.pth``, the bare reference-layout state_dict that the port's
 ``cli.py`` and the JAX package's ``import_generator`` read. Over a mesh
@@ -37,6 +42,7 @@ from calipsync_tpu_torch.nn.vgg import load_vgg19
 from calipsync_tpu_torch.train.trainer import (DTYPES, build_model,
                                                create_train_state,
                                                create_zero1_state,
+                                               make_resident_multi_step,
                                                make_resident_train_step,
                                                make_train_step)
 
@@ -71,6 +77,21 @@ def train_digital_model(dataset_dir: str, save_dir: str,
                                guard, loss_history, device)
     return _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint,
                        cfg, resume, log_every, None, loss_history, device)
+
+
+def dispatch_blocks(batches, k: int) -> list:
+    """An epoch's index batches ``(idx, fidx, ex)``, each (B,), as (3, K,
+    B) blocks, grouped as the JAX package groups them
+    (calipsync_tpu/pipelines/step2_train.py:189-203): the last
+    ``len(batches) % k`` batches are dropped, and an epoch shorter than
+    one block is wrap-padded to ``k`` batches."""
+    batches = list(batches)
+    stop = len(batches) // k * k
+    if stop == 0 and batches:
+        batches = [batches[i % len(batches)] for i in range(k)]
+        stop = k
+    return [np.asarray(batches[i:i + k]).transpose(1, 0, 2)
+            for i in range(0, stop, k)]
 
 
 def _stop(guard, mesh, device) -> bool:
@@ -142,8 +163,10 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         print(f"training crop store {store_bytes >> 20} MiB exceeds "
               f"resident_max_bytes; using the streaming dataset")
         resident = False
+    k = max(1, tc.steps_per_dispatch) if resident else 1
     if resident:
-        step_fn = make_resident_train_step(tc, cfg.crop, mesh)
+        step_fn = (make_resident_multi_step if k > 1
+                   else make_resident_train_step)(tc, cfg.crop, mesh)
         ds = ResidentLipSyncDataset(dataset_dir, cfg.model.mode, cfg.crop,
                                     device=device,
                                     num_workers=tc.num_workers)
@@ -160,6 +183,8 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         if resident:
             batches = ds.epoch_indices(tc.batch_size, rng, shuffle=True,
                                        drop_last=True)
+            if k > 1:
+                batches = dispatch_blocks(batches, k)
         else:
             batches = Prefetcher(
                 batch_iterator(ds, tc.batch_size, rng, shuffle=True,
@@ -169,16 +194,20 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
         # line), not one a step
         losses, n_batches, preempted = [], 0, False
         try:
-            for batch in batches:
+            for bi, batch in enumerate(batches):
                 if resident:
                     metrics = step_fn(state, ds.store, *batch, feats, vgg)
                 else:
                     metrics = step_fn(state, batch, feats, vgg)
-                losses.append(metrics["loss"])
-                n_batches += 1
-                if main and log_every and n_batches % log_every == 0:
+                losses.append(metrics["loss"].reshape(-1))
+                n_batches += k
+                # JAX's cadence: every log_every steps, or with K > 1 the
+                # block's last loss every log_every // K blocks
+                if main and log_every and (
+                        bi % max(1, log_every // k) == 0 if k > 1
+                        else n_batches % log_every == 0):
                     print(f"epoch {epoch + 1}/{tc.epochs} batch {n_batches} "
-                          f"loss {float(metrics['loss']):.6f}")
+                          f"loss {float(losses[-1][-1]):.6f}")
                 if guard is not None and _stop(guard, mesh, device):
                     preempted = True
                     break
@@ -193,7 +222,7 @@ def _train_impl(dataset_dir, save_dir, vgg_path, unet_checkpoint, cfg,
                   f"batches; checkpoint saved to {last_path}; run again "
                   f"with resume=True to continue")
             return last_path
-        epoch_losses = (torch.stack(losses).cpu().numpy() if losses
+        epoch_losses = (torch.cat(losses).cpu().numpy() if losses
                         else np.zeros(0, np.float32))
         if loss_history is not None:
             loss_history.extend(float(x) for x in epoch_losses)

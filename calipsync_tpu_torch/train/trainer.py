@@ -32,10 +32,17 @@ the block updates by ``torch.optim.Adam`` and the updated blocks are
 all-gathered back, so the update is the mean path's, elementwise.
 Checkpoints hold the replicated Adam layout either way
 (:func:`zero1_opt_to_replicated`), so they move between topologies.
+
+K steps a dispatch (:func:`make_resident_multi_step`,
+``TrainConfig.steps_per_dispatch``): on the card the K resident steps of
+one (K, B) index block run as one captured ``torch.cuda.CUDAGraph``,
+replayed once a block, PyTorch's form of JAX's one XLA program for the K
+steps; on the CPU, and over a gloo group, they run one after another.
 """
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from typing import Optional
 
@@ -73,10 +80,38 @@ def build_model(model_cfg: ModelConfig, seed: int = 0) -> Generator:
                          model_cfg.n_blocks, dtype=DTYPES[model_cfg.dtype])
 
 
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam`` (torch's defaults, as ``optax.adam``) whose
+    state a CUDA graph can hold. On the card it is ``capturable``: its step
+    count is a device tensor, so a captured update reads and advances it on
+    the device (:func:`make_resident_multi_step`). :meth:`load_state_dict`
+    keeps this optimizer's own ``capturable`` (a checkpoint written on the
+    card loads on the CPU, and one of the CPU on the card) and copies into
+    the state tensors it already holds instead of rebinding them, since a
+    captured graph reads those very tensors."""
+
+    def __init__(self, params, lr: float):
+        params = list(params)
+        super().__init__(params, lr=lr, capturable=params[0].is_cuda)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        held = {p: dict(st) for p, st in self.state.items()}
+        groups = [{**saved, "capturable": ours["capturable"]}
+                  for saved, ours in zip(state_dict["param_groups"],
+                                         self.param_groups)]
+        super().load_state_dict({**state_dict, "param_groups": groups})
+        with torch.no_grad():
+            for p, st in self.state.items():
+                for k, old in held.get(p, {}).items():
+                    new = st.get(k)
+                    if (torch.is_tensor(old) and torch.is_tensor(new)
+                            and old.shape == new.shape):
+                        st[k] = old.copy_(new)
+
+
 def create_train_state(model: Generator,
                        train_cfg: TrainConfig) -> TrainState:
-    return TrainState(model, torch.optim.Adam(model.parameters(),
-                                              lr=train_cfg.lr))
+    return TrainState(model, Adam(model.parameters(), lr=train_cfg.lr))
 
 
 class Zero1Adam:
@@ -103,7 +138,7 @@ class Zero1Adam:
         flat = self._padded([p.detach() for p in self.params])
         lo = self.index * self.block
         self.shard = torch.nn.Parameter(flat[lo:lo + self.block].clone())
-        self.inner = torch.optim.Adam([self.shard], lr=lr)
+        self.inner = Adam([self.shard], lr=lr)
 
     def _padded(self, tensors) -> torch.Tensor:
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
@@ -223,7 +258,11 @@ def _grads(state: TrainState, train_cfg: TrainConfig,
     for im, lb, au in zip(imgs.chunk(accum), labels.chunk(accum),
                           audio.chunk(accum)):
         if train_cfg.remat:
-            pred = checkpoint(model, im, au, use_reentrant=False)
+            # the train-mode forward draws no random numbers, so the
+            # recompute needs no RNG state (and a CUDA graph's capture
+            # could not read or set it)
+            pred = checkpoint(model, im, au, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             pred = model(im, au)
         total, metrics = generator_loss(pred, lb, vgg,
@@ -252,7 +291,6 @@ def _train_on(state: TrainState, train_cfg: TrainConfig,
             "mean")
         metrics = dict(zip(names, means.unbind()))
     state.optimizer.step()
-    state.step += 1
     return metrics
 
 
@@ -312,7 +350,9 @@ def make_train_step(train_cfg: TrainConfig, mesh=None):
         labels = target.float() / 255.0
         audio = batched_windows(audio_feats, _to_device(batch["index"], dev),
                                 mode=state.model.mode).to(dt)
-        return _train_on(state, train_cfg, vgg, imgs, labels, audio, mesh)
+        metrics = _train_on(state, train_cfg, vgg, imgs, labels, audio, mesh)
+        state.step += 1
+        return metrics
 
     return step
 
@@ -336,17 +376,12 @@ def _resident_batch(store: torch.Tensor, idx, fidx, ex,
     return imgs, labels, audio
 
 
-def make_resident_train_step(train_cfg: TrainConfig,
-                             crop: CropConfig = CropConfig(), mesh=None):
-    """The resident step: fn(state, store (N, S*S*3) uint8 on the card,
-    idx (B,), fidx (B,), ex (B,), audio_feats, vgg=None) -> metrics; the
-    same numbers as the host-batch step for the same indices
-    (data.dataset.ResidentLipSyncDataset). With ``mesh`` the index
-    vectors are the global batch's and the store is every rank's own
-    whole copy."""
-    def step(state: TrainState, store: torch.Tensor, idx, fidx, ex,
+def _resident_body(train_cfg: TrainConfig, crop: CropConfig, mesh):
+    """One resident step without its count: fn(state, store, idx, fidx,
+    ex, audio_feats, vgg) -> metrics."""
+    def body(state: TrainState, store: torch.Tensor, idx, fidx, ex,
              audio_feats: torch.Tensor,
-             vgg: Optional[VGG19Features] = None) -> dict:
+             vgg: Optional[VGG19Features]) -> dict:
         _prepare(state, train_cfg, mesh)
         if mesh is not None:
             idx, fidx, ex = (meshlib.shard_rows(torch.as_tensor(v), mesh)
@@ -355,7 +390,234 @@ def make_resident_train_step(train_cfg: TrainConfig,
                                 state.model.mode, state.model.dtype, crop)
         return _train_on(state, train_cfg, vgg, *batch, mesh)
 
+    return body
+
+
+def make_resident_train_step(train_cfg: TrainConfig,
+                             crop: CropConfig = CropConfig(), mesh=None):
+    """The resident step: fn(state, store (N, S*S*3) uint8 on the card,
+    idx (B,), fidx (B,), ex (B,), audio_feats, vgg=None) -> metrics; the
+    same numbers as the host-batch step for the same indices
+    (data.dataset.ResidentLipSyncDataset). With ``mesh`` the index
+    vectors are the global batch's and the store is every rank's own
+    whole copy."""
+    body = _resident_body(train_cfg, crop, mesh)
+
+    def step(state: TrainState, store: torch.Tensor, idx, fidx, ex,
+             audio_feats: torch.Tensor,
+             vgg: Optional[VGG19Features] = None) -> dict:
+        metrics = body(state, store, idx, fidx, ex, audio_feats, vgg)
+        state.step += 1
+        return metrics
+
     return step
+
+
+# Eager steps on a side stream before a capture (PyTorch's whole-network
+# capture recipe): they build Adam's state, cuDNN's plans and the caching
+# allocator's blocks, and set the attention kernel's shared-memory
+# attribute (cudaFuncSetAttribute, which the kernel's launch calls only the
+# first time it meets a size), so that none of it happens in the capture.
+GRAPH_WARMUP_STEPS = 3
+
+
+def _host_staged_mesh(mesh) -> bool:
+    """Whether a collective of ``mesh``'s batch group goes through a gloo
+    group: core/mesh.py stages those through host memory (or gloo runs
+    them on the host), which a CUDA graph cannot hold."""
+    import torch.distributed as dist
+
+    return (mesh is not None and dist.get_backend(
+        mesh.group(meshlib.batch_axes(mesh))) == "gloo")
+
+
+def _optimizers(opt) -> list:
+    """The torch optimizers behind a TrainState's optimizer."""
+    return [opt.inner] if isinstance(opt, Zero1Adam) else [opt]
+
+
+def _held_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a captured step reads or writes in place: the
+    parameters, the BatchNorm buffers and the optimizers' parameters and
+    state (Adam's moments and step count)."""
+    held = list(state.model.parameters()) + list(state.model.buffers())
+    for opt in _optimizers(state.optimizer):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                held.append(p)
+                held.extend(v for v in opt.state.get(p, {}).values()
+                            if torch.is_tensor(v))
+    return held
+
+
+class _StepGraph:
+    """K resident steps captured in one ``torch.cuda.CUDAGraph`` and
+    replayed once a (K, B) block.
+
+    PyTorch's whole-network capture: :data:`GRAPH_WARMUP_STEPS` eager steps
+    on a side stream, then the K steps (the gather from the store, the
+    mouth mask, the audio windows, the forward with the attention kernel,
+    the L1 and VGG losses, the backward, the collectives over an NCCL
+    group and the Adam update) are captured into one graph whose
+    activations and gradients live in its private memory pool. The warm-up
+    steps' updates are undone before the capture (every tensor the step
+    holds is put back as it was, Adam's state created by the warm-up to
+    its zeros), so a replay runs the caller's K steps from the caller's
+    state. Step k reads row k of one static (3, K, B) index buffer, which
+    each dispatch fills with one copy before it replays.
+
+    The graph reads and writes the state's own tensors, the store, the
+    features and the VGG weights at the addresses they had at the capture;
+    a replay checks that none of the state's tensors was rebound (a
+    checkpoint loads by copying into them, :class:`Adam`) and raises if
+    one was."""
+
+    def __init__(self, body, state: TrainState, store, audio_feats, vgg,
+                 blocks: torch.Tensor):
+        from calipsync_tpu_torch.kernels import cross_attention
+
+        dev = store.device
+        k = blocks.shape[1]
+        self.k = k
+        self.index = torch.empty(blocks.shape, dtype=torch.long, device=dev)
+        self.index.copy_(blocks)
+        # the host's copy of a block, pinned so that its upload is
+        # asynchronous; ``copied`` marks when the upload has read it
+        self.staging = torch.empty(blocks.shape, dtype=torch.long,
+                                   pin_memory=True)
+        self.copied = torch.cuda.Event()
+
+        def steps(n):
+            return [body(state, store, self.index[0, i % k],
+                         self.index[1, i % k], self.index[2, i % k],
+                         audio_feats, vgg) for i in range(n)]
+
+        before = {id(t): t.detach().clone() for t in _held_tensors(state)}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            steps(GRAPH_WARMUP_STEPS)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            for t in _held_tensors(state):
+                saved = before.get(id(t))
+                t.copy_(saved) if saved is not None else t.zero_()
+        del before
+        state.optimizer.zero_grad(set_to_none=True)
+
+        self.graph = torch.cuda.CUDAGraph()
+        captured = cross_attention.captured
+        # Another graph that only the garbage collector frees (one held in
+        # a reference cycle) would be destroyed by a collection that ran
+        # inside this capture, and freeing its memory pool there
+        # invalidates the capture: collect now, and hold the collector off
+        # until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # "thread_local": the process group's watchdog thread may poll
+            # its events while this thread captures
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                ms = steps(k)
+                self.metrics = {name: torch.stack([m[name] for m in ms])
+                                for name in ms[0]}
+        finally:
+            if collecting:
+                gc.enable()
+        # the attention kernel's launches that one replay runs (its
+        # wrapper counts a launch recorded into a graph apart)
+        self.attention_launches = cross_attention.captured - captured
+        self.held = [t.data_ptr() for t in _held_tensors(state)]
+
+    def run(self, state: TrainState, blocks: torch.Tensor) -> dict:
+        from calipsync_tpu_torch.kernels import cross_attention
+
+        if [t.data_ptr() for t in _held_tensors(state)] != self.held:
+            raise RuntimeError(
+                "make_resident_multi_step: a tensor of the train state was "
+                "rebound since its CUDA graph was captured (load a state "
+                "by copying into it, as Adam.load_state_dict and "
+                "Module.load_state_dict do)")
+        self.copied.synchronize()  # the last block's upload is done
+        self.staging.copy_(blocks)
+        # stream order: the upload waits for the last replay's reads
+        self.index.copy_(self.staging, non_blocking=True)
+        self.copied.record()
+        self.graph.replay()
+        cross_attention.launches += self.attention_launches
+        cross_attention.replayed += self.attention_launches
+        state.step += self.k
+        return {name: v.clone() for name, v in self.metrics.items()}
+
+
+class _MultiStep:
+    """The function :func:`make_resident_multi_step` returns (a class and
+    not a closure, so that no reference cycle keeps its graphs alive)."""
+
+    def __init__(self, train_cfg: TrainConfig, crop: CropConfig, mesh):
+        self.train_cfg, self.mesh = train_cfg, mesh
+        self.body = _resident_body(train_cfg, crop, mesh)
+        self.graphs: dict = {}
+        self.graphed = False
+
+    def __call__(self, state: TrainState, store: torch.Tensor, idx, fidx,
+                 ex, audio_feats: torch.Tensor,
+                 vgg: Optional[VGG19Features] = None) -> dict:
+        blocks = torch.stack([torch.as_tensor(v) for v in (idx, fidx, ex)])
+        if blocks.dim() != 3:
+            raise ValueError(f"index blocks of shape {tuple(blocks.shape)[1:]}"
+                             ": (K, B) expected")
+        self.graphed = (store.device.type == "cuda"
+                        and not _host_staged_mesh(self.mesh))
+        if not self.graphed:
+            ms = []
+            for i, f, e in zip(*blocks):
+                ms.append(self.body(state, store, i, f, e, audio_feats, vgg))
+                state.step += 1
+            return {name: torch.stack([m[name] for m in ms])
+                    for name in ms[0]}
+        cfg = self.train_cfg
+        key = (tuple(blocks.shape), state.model.dtype, cfg.grad_accum,
+               cfg.remat, id(state.model), id(state.optimizer), id(store),
+               id(audio_feats), id(vgg))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = _StepGraph(self.body, state, store, audio_feats, vgg,
+                               blocks)
+            self.graphs[key] = graph
+            # the objects the key names stay referenced by the graph's
+            # entry, so their ids cannot be reused while it lives
+            graph.refs = (state.model, state.optimizer, store, audio_feats,
+                          vgg)
+        return graph.run(state, blocks)
+
+
+def make_resident_multi_step(train_cfg: TrainConfig,
+                             crop: CropConfig = CropConfig(), mesh=None):
+    """K steps a dispatch (JAX's ``make_resident_multi_step``): fn(state,
+    store, idx (K,B), fidx (K,B), ex (K,B), audio_feats, vgg=None) ->
+    metrics, each a (K,) tensor on the store's device that stays there.
+    ``state.step`` goes up by K, and step k runs from step k-1's
+    parameters, as JAX's scan carries them; the K losses are those of K
+    calls of :func:`make_resident_train_step` on the rows of the block.
+
+    - On the CPU the K steps run one after another (JAX's unrolled form
+      on the CPU).
+    - On the card they run as one captured ``torch.cuda.CUDAGraph``
+      (:class:`_StepGraph`), made at the first call for each (K, B, dtype,
+      ``grad_accum``, ``remat``, state, store, features, VGG) and replayed
+      once a block: the host uploads the (K, B) index block into the
+      graph's static buffer and replays. Over an NCCL group the gradient,
+      metric and BatchNorm all-reduces are captured too.
+    - Over a gloo group core/mesh.py stages collectives through host
+      memory, which a graph cannot capture: the card then runs the K steps
+      eagerly.
+
+    ``fn.graphed`` says whether the last call replayed a graph. A capture
+    that fails raises; nothing falls back to eager steps."""
+    return _MultiStep(train_cfg, crop, mesh)
 
 
 def make_eval_step(mesh=None):

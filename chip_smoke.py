@@ -64,7 +64,16 @@ then, on the card and with no fallback anywhere:
      (bf16, B=16, the perceptual term on) and a third resumed from its
      checkpoint, the loss falling; (d) ``python -m
      calipsync_tpu_torch.cli train`` in a subprocess for one epoch and its
-     generator.pth served through the kernels.
+     generator.pth served through the kernels; (f) K steps a dispatch
+     (make_resident_multi_step, one CUDA graph of the resident step
+     replayed a (K, B) block): a K=4 dispatch against 4 eager steps in
+     bf16 and in fp32 with TF32 off (the losses within two eager runs'
+     spread, the weights within 2 lr K, in fp32 the BatchNorm statistics
+     at rtol 1e-6), ms a step for eager steps and K = 4 and 8 over the
+     same 64 steps with each graph's capture seconds, peak memory, busy
+     share and the attention launches its replays ran, then step 2 with
+     steps_per_dispatch 4 (JAX's steps an epoch) preempted by SIGTERM and
+     resumed.
 
   8. clones and serves many speakers (run before 7, with seeded weights;
      the face models compute their convs as fp32 products on the card,
@@ -145,14 +154,18 @@ then, on the card and with no fallback anywhere:
      with sync-BN and a ZeRO-1 step (fp32, B=16) against the one-card
      step (the loss, BatchNorm statistics, weights within Adam's
      first-step envelope and 0.999 of them within 1e-6, every gradient
-     leaf against fp64); (b) two gloo ranks spawned on this card
+     leaf against fp64), and one K=4 resident DP dispatch (one CUDA
+     graph replay, its NCCL all-reduces captured) against four per-step
+     DP calls; (b) two gloo ranks spawned on this card
      (kernels built here first): FrameSynthesizer(mesh=) at B=128
      against one card at the batch-invariance bound, one
      MultiStreamSynthesizer(mesh=) tick (8 streams x 25 rows) likewise,
      DP steps in fp32 and bf16, 8 + 8 rows with sync-BN, against one card
      at B=16 (every gradient leaf against fp64 as close as the one-card
      step's, grad_agreement), ZeRO-1 against DP (0.999 of the weights
-     within 1e-6) and half the Adam moments a rank, HuBERT-large TP and PP
+     within 1e-6) and half the Adam moments a rank, a K=2 resident DP
+     dispatch (eager over gloo) against two per-step DP calls,
+     HuBERT-large TP and PP
      on a 20 s chunk against one card at (a)'s tolerance, EP (8 experts
      of 1024x4096, 1000 tokens) against moe_ffn, and
      dryrun.run_sections(2) on the card; each rank's launches of the
@@ -160,10 +173,11 @@ then, on the card and with no fallback anywhere:
      DP step's ms and sharded serving's fps at 1 and 2 ranks.
 
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b) reads the launch counters, set to 0 just before
-it, just after it, and must show whole forwards: 9/17/4 launches in eval
+7c, 7d, 7f, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b) reads the launch
+counters, set to 0 just before it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
-attention is the kernel).
+attention is the kernel). A CUDA graph's replays count the attention
+launches they run (the kernels line's ``launches_in_graph_replays``).
 
 Prints every phase's wall seconds, the card's name and power limit, a
 {"kernels": [...]} line and,
@@ -1356,6 +1370,364 @@ def train_timing(torch, data, base, vgg_path, out):
                                adam_span_ms=adam_span)
 
 
+# the attention launches that CUDA graph replays ran, by path (a share of
+# the path's launch counts)
+REPLAYED: dict = {}
+MULTI_K = 4            # 7f's equality block, 12a's dispatch
+MULTI_KS = (4, 8)      # the timed dispatches
+MULTI_STEPS = 64       # the steps each timing runs
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (a warning where an op has none), so that two eager
+    runs of the same steps give the same bits. Under PyTorch's defaults
+    they do not: the generator's bilinear upsample runs its backward with
+    atomic adds (two eager runs of 4 fp32 steps differed by 9.1e-5 in
+    the loss, H100 80GB HBM3, 700 W); in this mode it runs a
+    decomposition whose backward is a sorted index_put. The timings run
+    under the defaults."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         on, warn) = flags
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+
+
+def within_spread(torch, got: dict, ref: dict, again: dict, what: str,
+                  k: int, bn_rtol=None) -> dict:
+    """A K-step dispatch (``got``) against K eager steps (``ref``), with
+    a second eager run of the same steps (``again``) as the yardstick:
+    each loss equal to the eager one, or within the two eager runs'
+    spread (kernels whose sums land in another order from run to run
+    leave one; under :func:`deterministic` none should); every weight
+    within Adam's sign-flip envelope, 2 lr K; with ``bn_rtol``, every
+    BatchNorm running statistic within that bar of the eager run's
+    (relative to the statistic plus its buffer's rms: running means sit
+    near 0), or within the eager spread where it is larger. Each dict:
+    ``loss`` (K floats) and ``state`` (CPU state_dict)."""
+    spread = max(abs(a - b) for a, b in zip(ref["loss"], again["loss"]))
+    diff = max(abs(a - b) for a, b in zip(got["loss"], ref["loss"]))
+
+    def worst(a, b, bn):
+        w = 0.0
+        for key, r in b["state"].items():
+            if key.endswith("num_batches_tracked") or bn != key.endswith(
+                    ("running_mean", "running_var")):
+                continue
+            r = r.double()
+            d = (a["state"][key].double() - r).abs()
+            if bn:
+                d = d / (r.abs() + r.pow(2).mean().sqrt() + 1e-12)
+            w = max(w, float(d.max()))
+        return w
+
+    weights = worst(got, ref, False)
+    bn, bn_spread = worst(got, ref, True), worst(again, ref, True)
+    print(f"{what}: losses {', '.join(f'{x:.7f}' for x in got['loss'])}; "
+          f"against {k} eager steps max diff {diff:.3g}, two eager runs "
+          f"{spread:.3g}; weights max diff {weights:.3g} (envelope "
+          f"{2 * MC_LR * k:g}); BatchNorm statistics max relative diff "
+          f"{bn:.3g} (two eager runs {bn_spread:.3g})")
+    check(diff <= spread, f"{what}: losses {got['loss']} against the eager "
+                          f"{ref['loss']}, beyond the eager spread {spread}")
+    check(weights <= 2 * MC_LR * k * (1 + 1e-3) + 1e-5,
+          f"{what}: weights outside Adam's envelope")
+    if bn_rtol is not None:
+        check(bn <= max(bn_rtol, bn_spread),
+              f"{what}: BatchNorm statistics at {bn} relative")
+    return dict(loss=got["loss"], eager_loss=ref["loss"], loss_diff=diff,
+                eager_spread=spread, max_weight_diff=weights, bn_rel=bn,
+                bn_rel_eager_spread=bn_spread)
+
+
+def index_pool(ds, n: int, seed: int) -> list:
+    """``n`` index batches of TRAIN_BATCH, epoch after epoch."""
+    rng = np.random.default_rng(seed)
+    pool = []
+    while len(pool) < n:
+        pool.extend(ds.epoch_indices(TRAIN_BATCH, rng))
+    return pool[:n]
+
+
+def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
+    """(f) K steps a dispatch (train/trainer.py make_resident_multi_step,
+    one CUDA graph of the resident step replayed a block), at the clone
+    recipe (B=16, bf16, the perceptual term on) and in fp32 with TF32 off:
+    one K=4 dispatch against 4 eager steps from the same state, under
+    deterministic algorithms (within_spread; the BatchNorm statistics at
+    rtol 1e-6 in fp32); ms a
+    step of eager steps and of K = 4 and 8 dispatches over the same 64
+    steps, each graph's capture seconds (warm-up included), peak device
+    memory, the device's busy share under torch.profiler and the
+    attention launches its replays ran; then step2 with
+    steps_per_dispatch 4 (multi_step_pipeline). Returns the launch counts
+    of each path."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.config import TrainConfig
+    from calipsync_tpu_torch.data.dataset import ResidentLipSyncDataset
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.nn.vgg import load_vgg19
+    from calipsync_tpu_torch.pipelines.step2_train import dispatch_blocks
+    from calipsync_tpu_torch.train import trainer
+
+    res = out["multi_step"] = {}
+    paths = {}
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    base_sd = torch.load(base, weights_only=True)
+    ds = ResidentLipSyncDataset(data, device="cuda")
+    feats = torch.from_numpy(ds.audio_feats).cuda()
+    pool = index_pool(ds, MULTI_STEPS, 1)
+    vggs = {}
+
+    def fresh(dtype):
+        model = Generator(dtype=dtype)
+        model.load_state_dict(base_sd, strict=True)
+        if dtype not in vggs:
+            vggs[dtype] = load_vgg19(vgg_path, dtype, "cuda")
+        return trainer.create_train_state(model.cuda(), tcfg), vggs[dtype]
+
+    def snapshot(state):
+        return {k: v.detach().float().cpu()
+                for k, v in state.model.state_dict().items()}
+
+    def eager(dtype, block):
+        state, vgg = fresh(dtype)
+        step = trainer.make_resident_train_step(tcfg)
+        loss = [float(step(state, ds.store, *block[:, i], feats, vgg)[
+            "loss"]) for i in range(block.shape[1])]
+        return dict(loss=loss, state=snapshot(state))
+
+    # equality: one K=4 dispatch against 4 eager steps, twice measured
+    block = dispatch_blocks(pool[:MULTI_K], MULTI_K)[0]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    for dtype, bn_rtol in ((torch.bfloat16, None), (torch.float32, 1e-6)):
+        name = str(dtype)[6:]
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with deterministic(torch):
+                a, b = eager(dtype, block), eager(dtype, block)
+                state, vgg = fresh(dtype)
+                fn = trainer.make_resident_multi_step(tcfg)
+                kernels.reset_launches()
+                m = fn(state, ds.store, *block, feats, vgg)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                got = dict(loss=m["loss"].tolist(), state=snapshot(state))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        check(fn.graphed and state.step == MULTI_K,
+              f"7f {name}: graphed {fn.graphed}, step {state.step}")
+        # the first dispatch: the warm-up's eager steps and one replay
+        want = {k: c * (trainer.GRAPH_WARMUP_STEPS + MULTI_K)
+                for k, c in TRAIN_LAUNCHES.items()}
+        check(counts == want, f"7f {name}: launches {counts}, expected "
+                              f"{want}")
+        paths[f"7f_first_dispatch_{name}"] = counts
+        REPLAYED[f"7f_first_dispatch_{name}"] = \
+            kernels.cross_attention.replayed
+        res[f"equal_{name}"] = within_spread(
+            torch, got, a, b, f"7f one K={MULTI_K} dispatch {name} B="
+            f"{TRAIN_BATCH} (perceptual on), deterministic", MULTI_K, bn_rtol)
+        del state, fn, m
+        torch.cuda.empty_cache()
+
+    # timing at the clone recipe: the same 64 steps each way
+    def timed(k):
+        state, vgg = fresh(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if k == 1:
+            fn = trainer.make_resident_train_step(tcfg)
+            blocks = list(pool)
+            t0 = time.perf_counter()
+            fn(state, ds.store, *blocks[0], feats, vgg)  # cuDNN's plans
+        else:
+            fn = trainer.make_resident_multi_step(tcfg)
+            blocks = dispatch_blocks(pool, k)
+            t0 = time.perf_counter()
+            fn(state, ds.store, *blocks[0], feats, vgg)  # warm-up, capture
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for blk in blocks:
+            fn(state, ds.store, *blk, feats, vgg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MULTI_STEPS
+        counts = kernels.launch_counts()
+        replayed = kernels.cross_attention.replayed
+        peak = torch.cuda.max_memory_allocated()
+        check(counts == {n: c * MULTI_STEPS for n, c in
+                         TRAIN_LAUNCHES.items()},
+              f"7f K={k}: launches {counts} over {MULTI_STEPS} steps")
+        n = max(k, MULTI_K)  # profile 4 eager steps against one dispatch
+        prof = device_profile(
+            torch, lambda: [fn(state, ds.store, *blk, feats, vgg)
+                            for blk in blocks[:n // k]],
+            f"{n} steps, K={k} (bf16, B={TRAIN_BATCH})")
+        del state, fn
+        torch.cuda.empty_cache()
+        return dict(ms=ms, first_s=first_s, peak_bytes=peak,
+                    launches=counts, replayed=replayed,
+                    busy=prof.get("device_busy_share"),
+                    profile={k2: v for k2, v in prof.items()
+                             if k2 != "kernels_ms"})
+
+    timing = {k: timed(k) for k in (1,) + MULTI_KS}
+    res["timing"] = timing
+    for k, t in timing.items():
+        busy = ("not measured" if t["busy"] is None
+                else f"{t['busy']:.3f}")
+        print(f"7f bf16 B={TRAIN_BATCH} K={k}: {t['ms']:.2f} ms a step over "
+              f"{MULTI_STEPS} steps ({TRAIN_BATCH / t['ms'] * 1e3:.1f} "
+              f"samples/s); {'first step' if k == 1 else 'capture'} "
+              f"{t['first_s']:.2f} s; peak device memory "
+              f"{t['peak_bytes'] / 2**30:.3f} GiB; device busy {busy}; "
+              f"attention launches {t['launches']['cross_attention']} "
+              f"({t['replayed']} of them in graph replays)")
+        paths[f"7f_timed_k{k}"] = t["launches"]
+        REPLAYED[f"7f_timed_k{k}"] = t["replayed"]
+    paths.update(multi_step_pipeline(torch, data, base, vgg_path, pool,
+                                     res))
+    return paths
+
+
+def multi_step_pipeline(torch, data, base, vgg_path, pool, res) -> dict:
+    """step2 (train_digital_model) with steps_per_dispatch 4 on 7c's
+    dataset (bf16, B=16, perceptual on): each epoch's steps, JAX's rule
+    (the tail of n_batches % K dropped), and its mean loss over two
+    epochs; then the same run preempted by a real SIGTERM after the first
+    block of the second epoch (step2 checkpoints under that epoch, with
+    the state after that block, and a resumed run redoes the epoch) and
+    resumed, all under deterministic algorithms. The losses before the
+    signal must be the uninterrupted run's, and the resumed epoch's those
+    of the preempted run's live state carried on in this process over the
+    same blocks (no checkpoint in between), each within 7f's bf16 eager
+    spread."""
+    import dataclasses
+
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                            TrainConfig)
+    from calipsync_tpu_torch.core import checkpoint as ckpt
+    from calipsync_tpu_torch.pipelines import step2_train
+    from calipsync_tpu_torch.train import trainer
+
+    k = MULTI_K
+    n_batches = TRAIN_FRAMES // TRAIN_BATCH
+    per_epoch = n_batches // k * k  # JAX's rule
+    cfg = PipelineConfig(model=ModelConfig(dtype="bfloat16"),
+                         train=TrainConfig(batch_size=TRAIN_BATCH, epochs=2,
+                                           steps_per_dispatch=k))
+    real = step2_train.make_resident_multi_step
+    calls = []  # (state, blocks, losses) of each dispatch
+
+    def recording(trip_at=None):
+        def make(*a, **kw):
+            fn = real(*a, **kw)
+
+            def step(state, store, idx, fidx, ex, feats, vgg):
+                m = fn(state, store, idx, fidx, ex, feats, vgg)
+                calls.append((state, np.stack([idx, fidx, ex]),
+                              m["loss"].tolist(), feats, vgg, store))
+                if len(calls) == trip_at:
+                    signal.raise_signal(signal.SIGTERM)
+                return m
+            return step
+        return make
+
+    def run(save, trip_at=None, resume=False):
+        losses = []
+        step2_train.make_resident_multi_step = recording(trip_at)
+        try:
+            path = step2_train.train_digital_model(
+                data, save, vgg_path=vgg_path, unet_checkpoint=base,
+                cfg=cfg, loss_history=losses, log_every=0, resume=resume)
+        finally:
+            step2_train.make_resident_multi_step = real
+        torch.cuda.synchronize()
+        return path, losses
+
+    spread = max(r["eager_spread"] for n, r in res.items()
+                 if n.startswith("equal_bfloat16"))
+    with tempfile.TemporaryDirectory() as tmp, deterministic(torch):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        path, whole = run(os.path.join(tmp, "whole"))
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        REPLAYED["7f_train_digital_model"] = kernels.cross_attention.replayed
+        blocks_whole = [c[1] for c in calls]
+        means = [float(np.mean(whole[i * per_epoch:(i + 1) * per_epoch]))
+                 for i in range(2)]
+        print(f"7f train_digital_model steps_per_dispatch {k}, bf16 B="
+              f"{TRAIN_BATCH}: {n_batches} batches an epoch -> {per_epoch} "
+              f"steps ({len(whole)} in 2 epochs, JAX's rule {per_epoch} an "
+              f"epoch) in {wall:.1f} s; epoch mean losses "
+              f"{', '.join(f'{x:.5f}' for x in means)}; launches {counts}")
+        check(len(whole) == 2 * per_epoch and np.isfinite(whole).all(),
+              f"7f step2: {len(whole)} losses")
+        check(torch.load(path, weights_only=True)["step"] == 2 * per_epoch,
+              "7f step2: the checkpoint's step count")
+        check(counts["cross_attention"] == TRAIN_LAUNCHES["cross_attention"]
+              * (2 * per_epoch + trainer.GRAPH_WARMUP_STEPS),
+              f"7f step2: launches {counts}")
+        # preempted after the first block of the second epoch, resumed
+        calls.clear()
+        trip = per_epoch // k + 1
+        save = os.path.join(tmp, "preempted")
+        path, _ = run(save, trip_at=trip)
+        before = [x for c in calls for x in c[2]]
+        live, _, _, feats, vgg, store = calls[-1]
+        check(path.endswith("step_1.pt") and len(calls) == trip,
+              f"7f preemption: {path} after {len(calls)} dispatches")
+        d_before = max(abs(a - b) for a, b in zip(before, whole))
+        # the live state carried on over the redone epoch's blocks
+        fn = real(cfg.train, cfg.crop)
+        carried = [x for blk in blocks_whole[per_epoch // k:]
+                   for x in fn(live, store, *blk, feats, vgg)["loss"]
+                   .tolist()]
+        del fn, live
+        calls.clear()
+        torch.cuda.empty_cache()
+        path, resumed = run(save, resume=True)
+        check(path.endswith("step_2.pt") and torch.load(
+            path, weights_only=True)["step"] == 2 * per_epoch + k,
+            f"7f resume: {path}")
+        check(all(np.array_equal(c[1], b) for c, b in
+                  zip(calls, blocks_whole[per_epoch // k:])),
+              "7f resume: the redone epoch drew other batches")
+        d_after = max(abs(a - b) for a, b in zip(resumed, carried))
+        print(f"7f preempted (SIGTERM) after dispatch {trip}, resumed: "
+              f"{len(before)} losses before it against the uninterrupted "
+              f"run's, max diff {d_before:.3g}; the redone epoch's "
+              f"{len(resumed)} against the live state carried on, max diff "
+              f"{d_after:.3g} (7f's bf16 eager spread {spread:.3g})")
+        check(len(resumed) == per_epoch and d_before <= spread
+              and d_after <= spread,
+              "7f: preemption and resume moved the losses")
+    calls.clear()
+    res["pipeline"] = dict(steps_per_epoch=per_epoch, epoch_mean_loss=means,
+                           wall_s=wall, launches=counts,
+                           preempted_max_diff=d_before,
+                           resumed_max_diff=d_after)
+    return {"7f_train_digital_model": counts}
+
+
 def train_pipeline_phase(torch, tmp, seed, out):
     """(c) train_digital_model on a synthetic step-1 speaker (250 frames
     of 480x480 from --seed), bf16, B=16, the perceptual term on with a
@@ -1389,6 +1761,8 @@ def train_pipeline_phase(torch, tmp, seed, out):
     print(f"synthetic step-1 speaker: {TRAIN_FRAMES} frames of 480x480 in "
           f"{time.perf_counter() - t0:.1f} s")
     train_timing(torch, data, base, vgg, out)
+    with phase("7f K steps a dispatch"):
+        paths = multi_step_phase(torch, data, base, vgg, out)
 
     cfg = PipelineConfig(model=ModelConfig(dtype="bfloat16"),
                          train=TrainConfig(batch_size=TRAIN_BATCH,
@@ -1468,7 +1842,8 @@ def train_pipeline_phase(torch, tmp, seed, out):
           and std > 1e-3, "cli train's generator: output saturated")
     out["cli_train"] = dict(wall_s=cli_wall, out_min=lo, out_max=hi,
                             out_std=std)
-    return {"train_digital_model": counts, "cli_train_served": served}
+    return {"train_digital_model": counts, "cli_train_served": served,
+            **paths}
 
 
 def training(torch, timer, seed: int, out: dict) -> dict:
@@ -3413,6 +3788,66 @@ def mc_same_step(torch, got: dict, ref: dict, what: str, loss_rtol: float,
     return res
 
 
+def mc_multi_step(torch, sd, feats, mesh, what: str, k: int,
+                  graphed: bool):
+    """K resident DP steps a dispatch over ``mesh`` (fp32, B=16 global,
+    no perceptual term, a random store of 64 crops) against K per-step DP
+    calls from the same state, under deterministic algorithms
+    (within_spread); ``graphed``: whether the
+    dispatch must be a CUDA graph replay (NCCL) or eager (gloo).
+    Returns the comparison and the dispatch's launch counts."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.config import TrainConfig
+    from calipsync_tpu_torch.nn.unet import Generator
+    from calipsync_tpu_torch.train import trainer
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    rng = np.random.default_rng(7)
+    store = torch.from_numpy(rng.integers(0, 256, (64, 160 * 160 * 3),
+                                          dtype=np.uint8)).cuda()
+    block = rng.integers(0, 64, (3, k, TRAIN_BATCH)).astype(np.int32)
+    f = torch.from_numpy(feats).cuda()
+
+    def state():
+        model = Generator(dtype=torch.float32)
+        model.load_state_dict(sd, strict=True)
+        return trainer.create_train_state(model.cuda(), tcfg)
+
+    def snapshot(st):
+        return {n: v.detach().float().cpu()
+                for n, v in st.model.state_dict().items()}
+
+    def per_step():
+        st = state()
+        step = trainer.make_resident_train_step(tcfg, mesh=mesh)
+        loss = [float(step(st, store, *block[:, i], f)["loss"])
+                for i in range(k)]
+        return dict(loss=loss, state=snapshot(st))
+
+    with deterministic(torch):
+        a, b = per_step(), per_step()
+        st = state()
+        fn = trainer.make_resident_multi_step(tcfg, mesh=mesh)
+        kernels.reset_launches()
+        m = fn(st, store, *block, f)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        replayed = kernels.cross_attention.replayed
+        got = dict(loss=m["loss"].tolist(), state=snapshot(st))
+    print(f"{what}: a K={k} dispatch ran "
+          + ("as one CUDA graph replay" if fn.graphed else
+             "eagerly (gloo stages collectives through host memory, "
+             "which a CUDA graph cannot capture)"))
+    check(fn.graphed == graphed and st.step == k,
+          f"{what}: graphed {fn.graphed}, step {st.step}")
+    steps = k + (trainer.GRAPH_WARMUP_STEPS if graphed else 0)
+    check(counts == {n: c * steps for n, c in TRAIN_LAUNCHES.items()},
+          f"{what}: launches {counts}")
+    res = within_spread(torch, got, a, b, f"{what}, deterministic", k)
+    res.update(graphed=fn.graphed, replayed=replayed)
+    return res, counts
+
+
 def mc_rank(data: str, hubert_dir: str, seed: int) -> dict:
     """(12b) One of two gloo ranks sharing the card: every parallel path at
     full width, each held against the one-card run that rank 0 makes
@@ -3506,6 +3941,9 @@ def mc_rank(data: str, hubert_dir: str, seed: int) -> dict:
             torch, sd, batch, tfeats, dt, mesh))
     steps["zero1"] = counted("zero1", lambda: mc_step(
         torch, sd, batch, tfeats, torch.float32, mesh, zero1=True))
+    res["multi_step"], res["launches"]["multi_step"] = mc_multi_step(
+        torch, sd, tfeats, mesh, f"12b rank {rank} DP (gloo, 2 ranks)", 2,
+        graphed=False)
     res["dp_step_ms"] = {k: steps[k]["ms"] for k in
                          ("dp_float32", "dp_bfloat16", "zero1")}
     if lead:
@@ -3653,6 +4091,10 @@ def multi_card(torch, assets, seed: int, out: dict) -> dict:
                                          1e-6, exact,
                                          min_near=MC_SAME_UPDATE_NEAR)
             del one, got, exact
+            res["multi_step"], paths["12a_multi_step"] = mc_multi_step(
+                torch, sd, tfeats, mesh, "12a DP (NCCL, 1 rank, fp32)",
+                MULTI_K, graphed=True)
+            REPLAYED["12a_multi_step"] = res["multi_step"]["replayed"]
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = flags
         finally:
@@ -3865,6 +4307,8 @@ def main() -> int:
     # the training path: forward + backward through the kernel at B=16
     attention = next(k for k in kernels_line
                      if k["name"] == "cross_attention")
+    attention["launches_in_graph_replays"] = sum(REPLAYED.values())
+    attention["launches_in_graph_replays_by_path"] = REPLAYED
     attention["train_fwd_bwd_ms"] = {
         dt: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
         for dt, r in metrics["attention_backward"].items()}

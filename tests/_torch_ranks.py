@@ -92,6 +92,31 @@ def _step(state_dict, batch, feats, mesh=None, zero1=False,
     return out
 
 
+def _multi_step(state_dict, a: dict, mesh) -> dict:
+    """K resident DP steps in one make_resident_multi_step dispatch over
+    ``mesh`` (eager over gloo) against K per-step DP calls from the same
+    weights: both runs' losses, step counts and state digests."""
+    store, blocks, feats = (torch.from_numpy(a[k]) for k in
+                            ("store", "blocks", "feats"))
+    tcfg = TrainConfig(batch_size=blocks.shape[-1])
+    runs = {}
+    for name in ("multi", "per_step"):
+        model = _generator(state_dict)
+        state = trainer.create_train_state(model, tcfg)
+        if name == "multi":
+            fn = trainer.make_resident_multi_step(tcfg, mesh=mesh)
+            loss = fn(state, store, *blocks, feats)["loss"].tolist()
+            graphed = fn.graphed
+        else:
+            fn = trainer.make_resident_train_step(tcfg, mesh=mesh)
+            loss = [float(fn(state, store, *blocks[:, i], feats)["loss"])
+                    for i in range(blocks.shape[1])]
+        runs[name] = {"loss": loss, "step": state.step,
+                      "state": digest(_sd(model))}
+    runs["graphed"] = graphed
+    return runs
+
+
 def _serve_frames(state_dict, speaker_dir, features, fmt, mesh=None):
     from calipsync_tpu_torch.infer.synthesizer import FrameSynthesizer
 
@@ -123,9 +148,9 @@ def _multistream(state_dict, speaker_dirs, ticks, mesh=None):
 
 
 def mesh_cases(a: dict) -> dict:
-    """Serving, data-parallel training, ZeRO-1, the hybrid mesh and a
-    2-rank checkpoint (tests/test_torch_mesh.py). Ranks 0-1 train on a
-    2-rank mesh (fp32, ZeRO-1, fp64), while
+    """Serving, data-parallel training, ZeRO-1, K steps a dispatch, the
+    hybrid mesh and a 2-rank checkpoint (tests/test_torch_mesh.py). Ranks
+    0-1 train on a 2-rank mesh (fp32, ZeRO-1, fp64, a K=2 dispatch), while
     ranks 2-3 serve on theirs and then run the one-rank yardsticks: the
     fp64 step (rank 2), the unsharded serving and multi-stream (rank 3);
     the two pairs take about as long. Ranks 0-1 then write the
@@ -168,6 +193,7 @@ def mesh_cases(a: dict) -> dict:
         back.optimizer.load_state_dict(dp["opt"])
         reload = _opt_compare(back.optimizer.state_dict(), dp["opt"])
         dp64 = _step(sd, batch, feats, two, dtype=torch.float64)
+        out["multi"] = _multi_step(sd, a["multi"], two)
         if rank == 0:
             out["dp"] = {k: dp[k] for k in ("metrics", "state", "grads",
                                             "step")}

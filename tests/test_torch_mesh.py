@@ -160,6 +160,10 @@ def cases(synthetic_step3_dir, tmp_path_factory):
             np.uint8), "phys": rng.integers(0, 8, 4),
             "feats": rng.standard_normal((16, 2, 1024)).astype(np.float32),
             "fidx": rng.integers(0, 16, 4)},
+        "multi": {"store": rng.integers(0, 256, (6, 160 * 160 * 3)).astype(
+            np.uint8), "blocks": rng.integers(0, 6, (3, 2, 2)).astype(
+                np.int32), "feats": rng.standard_normal((12, 2, 1024)).astype(
+                    np.float32)},
         "step1": make_synthetic_step1(str(tmp / "step1"), n_frames=2,
                                       res=192, seed=3),
         "base": str(base), "save": str(tmp / "run"),
@@ -352,6 +356,23 @@ def test_dp_step_equals_one_rank_on_the_global_batch(cases):
         assert np.abs(dp["state"][k] - v).max() <= \
             2 * LR * (1 + RTOL) + ATOL, k
     assert out[0]["dp"]["step"] == one["step"] == 1
+
+
+def test_multi_step_equals_per_step_dp(cases):
+    """make_resident_multi_step over a 2-rank gloo mesh on the CPU (K=2,
+    one row a rank, sync-BN): the K steps run eagerly, as K per-step DP
+    calls do, to the bit: the same losses, step count and weights on both
+    ranks."""
+    _, out, _ = cases
+    for o in out[:2]:
+        m = o["multi"]
+        assert m["graphed"] is False
+        assert m["multi"]["loss"] == m["per_step"]["loss"]
+        assert len(m["multi"]["loss"]) == 2 and np.isfinite(
+            m["multi"]["loss"]).all()
+        assert m["multi"]["step"] == m["per_step"]["step"] == 2
+        assert m["multi"]["state"] == m["per_step"]["state"]
+    assert out[0]["multi"]["multi"] == out[1]["multi"]["multi"]
 
 
 def test_zero1_equals_the_mean_path(cases):

@@ -10,6 +10,7 @@ against JAX ``make_train_step`` on a 1-device CPU mesh; the mechanics tests
 run one attention block.
 """
 
+import copy
 import dataclasses
 import json
 import signal
@@ -677,6 +678,31 @@ def test_checkpoint_round_trip(tmp_path):
         ckpt.restore_checkpoint(tmp_path / "empty", fresh)
 
 
+def test_adam_load_keeps_capturable_and_copies_in_place():
+    """trainer.Adam: a state_dict written by a capturable (card) optimizer
+    loads into a CPU one, which stays not capturable (its step count on
+    the host), and a load copies into the moments the optimizer holds, so
+    a CUDA graph that reads them sees the loaded values."""
+    state, tcfg = _small_state()
+    batch, feats = _batch(12)
+    trainer.make_train_step(tcfg)(state, batch, torch.from_numpy(feats))
+    opt = state.optimizer
+    assert isinstance(opt, trainer.Adam)
+    assert opt.param_groups[0]["capturable"] is False
+    saved = copy.deepcopy(opt.state_dict())  # state_dict shares the dicts
+    saved["param_groups"][0]["capturable"] = True
+    held = {id(v) for st in opt.state.values() for v in st.values()}
+    want = [st["exp_avg"].clone() * 2 for st in opt.state.values()]
+    for st in saved["state"].values():
+        st["exp_avg"] = st["exp_avg"] * 2
+    opt.load_state_dict(saved)
+    assert opt.param_groups[0]["capturable"] is False
+    assert {id(v) for st in opt.state.values() for v in st.values()} == held
+    for st, w in zip(opt.state.values(), want):
+        torch.testing.assert_close(st["exp_avg"], w, rtol=0, atol=0)
+        assert st["step"].device.type == "cpu"
+
+
 def test_preemption_guard_latches_and_restores_handlers():
     before = signal.getsignal(signal.SIGTERM)
     with ckpt.PreemptionGuard() as guard:
@@ -916,18 +942,17 @@ def test_cli_train_on_cpu(step1_dir, tmp_path, capsys, monkeypatch):
 
 
 def test_train_config_matches_jax():
-    """The train section: the JAX TrainConfig's fields and defaults but
-    steps_per_dispatch (eager steps: nothing to fold), read from a config
-    file that may still set it; the data-parallel settings load."""
+    """The train section: the JAX TrainConfig's fields and defaults,
+    steps_per_dispatch included; the data-parallel settings load."""
     ours = dataclasses.asdict(config.TrainConfig())
     theirs = dataclasses.asdict(jax_config.TrainConfig())
-    assert theirs.pop("steps_per_dispatch") == 1
     assert ours == theirs and ours["sync_batchnorm"] is True
     cfg = config.load_config(overrides={"train": {
         "epochs": 3, "remat": True, "sync_batchnorm": False,
         "steps_per_dispatch": 4}})
     assert cfg.train.epochs == 3 and cfg.train.remat
     assert not cfg.train.sync_batchnorm
+    assert cfg.train.steps_per_dispatch == 4
     cfg = config.load_config(overrides={"train": {"zero1": True},
                                         "mesh": {"data": 2}})
     assert cfg.train.zero1 and cfg.mesh.data == 2
