@@ -23,7 +23,7 @@ import ctypes
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import _build
+from . import _build, _counts
 
 # Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
@@ -79,19 +79,13 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor,
 
     q, k (B,N,D); v (B,N,C); one dtype, float32 or bfloat16.
     Returns (B,N,C) in v.dtype. ``cross_attention.launches`` counts the
-    kernel's launches (forwards on the card). A launch recorded into a CUDA
-    graph runs only when the graph is replayed: it is counted in
-    ``cross_attention.captured`` instead, and the graph's owner adds it to
-    ``launches`` at each replay (train/trainer.py ``_StepGraph``), and to
-    ``cross_attention.replayed``, the share of ``launches`` that replays
-    ran.
+    kernel's launches (forwards on the card); a launch recorded into a
+    CUDA graph counts when the graph is replayed (kernels/_counts.py).
     """
     return torch.ops.calipsync.cross_attention.default(q, k, v)
 
 
-cross_attention.launches = 0
-cross_attention.captured = 0
-cross_attention.replayed = 0
+_counts.init(cross_attention)
 
 
 def _attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -123,10 +117,7 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor,
                 code, b, n, d, c,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "cross_attention")
-    if torch.cuda.is_current_stream_capturing():
-        cross_attention.captured += 1
-    else:
-        cross_attention.launches += 1
+    _counts.count(cross_attention)
     return out
 
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import _build
+from . import _build, _counts
 from .fused_ir import as_fp32
 
 LEAKY_SLOPE = 0.01
@@ -255,7 +255,7 @@ def depthwise3x3(x: torch.Tensor, kernel: torch.Tensor,
                                                     stride)
 
 
-depthwise3x3.launches = 0
+_counts.init(depthwise3x3)
 
 
 def _depthwise_cuda(x, taps, scale, bias, stride):
@@ -279,7 +279,7 @@ def _depthwise_cuda(x, taps, scale, bias, stride):
     plan = (_plan_array((b, h, w, c, stride, x.device.index))
             if takes_tma_kernel(x, taps, scale, bias) else None)
     out = launch(x, taps, scale, bias, stride, plan)
-    depthwise3x3.launches += 1
+    _counts.count(depthwise3x3)
     return out
 
 

@@ -27,7 +27,7 @@ import ctypes
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from . import _build
+from . import _build, _counts
 
 LEAKY_SLOPE = 0.01
 BN_EPS = 1e-5
@@ -105,7 +105,7 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
                                                 residual)
 
 
-fused_inverted_residual.launches = 0
+_counts.init(fused_inverted_residual)
 
 
 def _fused_ir_cpu(x, w1, b1, kd, bd, w2, b2, residual):
@@ -145,7 +145,7 @@ def _fused_ir_cuda(x, w1, b1, kd, bd, w2, b2, residual):
                 out.data_ptr(), code, b, h, w, cin, ch, cout, int(residual),
                 LEAKY_SLOPE, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "fused_inverted_residual")
-    fused_inverted_residual.launches += 1
+    _counts.count(fused_inverted_residual)
     return out
 
 

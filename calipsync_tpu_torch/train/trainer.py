@@ -82,17 +82,28 @@ def build_model(model_cfg: ModelConfig, seed: int = 0) -> Generator:
 
 class Adam(torch.optim.Adam):
     """``torch.optim.Adam`` (torch's defaults, as ``optax.adam``) whose
-    state a CUDA graph can hold. On the card it is ``capturable``: its step
-    count is a device tensor, so a captured update reads and advances it on
-    the device (:func:`make_resident_multi_step`). :meth:`load_state_dict`
-    keeps this optimizer's own ``capturable`` (a checkpoint written on the
-    card loads on the CPU, and one of the CPU on the card) and copies into
-    the state tensors it already holds instead of rebinding them, since a
-    captured graph reads those very tensors."""
+    state a CUDA graph can hold. :meth:`make_capturable` puts its step
+    count on the device, so that a captured update reads and advances it
+    there; only an optimizer that :func:`make_resident_multi_step`
+    captures takes it, and the eager steps keep PyTorch's default update,
+    whose step count stays on the host (the capturable update made an
+    eager bf16 step at B=16 7-24 ms slower on an H100, chip_smoke.py 7f;
+    it also rounds differently, so a dispatch equals eager steps to the
+    bit only when they take the capturable update).
+    :meth:`load_state_dict` keeps this optimizer's own ``capturable`` (a
+    checkpoint written by a captured optimizer loads into any other, and
+    any checkpoint into a captured one) and copies into the state tensors
+    it already holds instead of rebinding them, since a captured graph
+    reads those very tensors."""
 
-    def __init__(self, params, lr: float):
-        params = list(params)
-        super().__init__(params, lr=lr, capturable=params[0].is_cuda)
+    def make_capturable(self) -> None:
+        """The step count on each parameter's device and the update
+        ``capturable``; done before a capture (it rebinds the counts)."""
+        for group in self.param_groups:
+            group["capturable"] = True
+        for p, st in self.state.items():
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device)
 
     def load_state_dict(self, state_dict: dict) -> None:
         held = {p: dict(st) for p, st in self.state.items()}
@@ -454,7 +465,8 @@ class _StepGraph:
     """K resident steps captured in one ``torch.cuda.CUDAGraph`` and
     replayed once a (K, B) block.
 
-    PyTorch's whole-network capture: :data:`GRAPH_WARMUP_STEPS` eager steps
+    PyTorch's whole-network capture: the optimizers made capturable
+    (:meth:`Adam.make_capturable`), :data:`GRAPH_WARMUP_STEPS` eager steps
     on a side stream, then the K steps (the gather from the store, the
     mouth mask, the audio windows, the forward with the attention kernel,
     the L1 and VGG losses, the backward, the collectives over an NCCL
@@ -467,18 +479,23 @@ class _StepGraph:
     each dispatch fills with one copy before it replays.
 
     The graph reads and writes the state's own tensors, the store, the
-    features and the VGG weights at the addresses they had at the capture;
-    a replay checks that none of the state's tensors was rebound (a
-    checkpoint loads by copying into them, :class:`Adam`) and raises if
-    one was."""
+    features and the VGG weights at the addresses they had at the capture,
+    and holds those objects (``inputs``); a replay checks that none of the
+    state's tensors was rebound (a checkpoint loads by copying into them,
+    :class:`Adam`) and raises if one was."""
 
     def __init__(self, body, state: TrainState, store, audio_feats, vgg,
                  blocks: torch.Tensor):
-        from calipsync_tpu_torch.kernels import cross_attention
+        from calipsync_tpu_torch import kernels
 
         dev = store.device
         k = blocks.shape[1]
         self.k = k
+        self.shape = tuple(blocks.shape)
+        self.inputs = (state.model, state.optimizer, store, audio_feats,
+                       vgg)
+        for opt in _optimizers(state.optimizer):
+            opt.make_capturable()
         self.index = torch.empty(blocks.shape, dtype=torch.long, device=dev)
         self.index.copy_(blocks)
         # the host's copy of a block, pinned so that its upload is
@@ -506,7 +523,7 @@ class _StepGraph:
         state.optimizer.zero_grad(set_to_none=True)
 
         self.graph = torch.cuda.CUDAGraph()
-        captured = cross_attention.captured
+        captured = kernels.captured_counts()
         # Another graph that only the garbage collector frees (one held in
         # a reference cycle) would be destroyed by a collection that ran
         # inside this capture, and freeing its memory pool there
@@ -526,13 +543,21 @@ class _StepGraph:
         finally:
             if collecting:
                 gc.enable()
-        # the attention kernel's launches that one replay runs (its
-        # wrapper counts a launch recorded into a graph apart)
-        self.attention_launches = cross_attention.captured - captured
+        # the kernels' launches that one replay runs
+        self.launches = {name: n - captured[name] for name, n in
+                         kernels.captured_counts().items()}
         self.held = [t.data_ptr() for t in _held_tensors(state)]
 
+    def captured_for(self, state: TrainState, store, audio_feats, vgg,
+                     blocks: torch.Tensor) -> bool:
+        """Whether this graph runs these inputs: the same block shape and
+        the very objects it was captured with."""
+        return (tuple(blocks.shape) == self.shape and all(
+            a is b for a, b in zip(self.inputs, (
+                state.model, state.optimizer, store, audio_feats, vgg))))
+
     def run(self, state: TrainState, blocks: torch.Tensor) -> dict:
-        from calipsync_tpu_torch.kernels import cross_attention
+        from calipsync_tpu_torch import kernels
 
         if [t.data_ptr() for t in _held_tensors(state)] != self.held:
             raise RuntimeError(
@@ -546,20 +571,19 @@ class _StepGraph:
         self.index.copy_(self.staging, non_blocking=True)
         self.copied.record()
         self.graph.replay()
-        cross_attention.launches += self.attention_launches
-        cross_attention.replayed += self.attention_launches
+        kernels.note_replay(self.launches)
         state.step += self.k
         return {name: v.clone() for name, v in self.metrics.items()}
 
 
 class _MultiStep:
     """The function :func:`make_resident_multi_step` returns (a class and
-    not a closure, so that no reference cycle keeps its graphs alive)."""
+    not a closure, so that no reference cycle keeps its graph alive)."""
 
     def __init__(self, train_cfg: TrainConfig, crop: CropConfig, mesh):
-        self.train_cfg, self.mesh = train_cfg, mesh
+        self.mesh = mesh
         self.body = _resident_body(train_cfg, crop, mesh)
-        self.graphs: dict = {}
+        self.graph: Optional[_StepGraph] = None
         self.graphed = False
 
     def __call__(self, state: TrainState, store: torch.Tensor, idx, fidx,
@@ -578,20 +602,12 @@ class _MultiStep:
                 state.step += 1
             return {name: torch.stack([m[name] for m in ms])
                     for name in ms[0]}
-        cfg = self.train_cfg
-        key = (tuple(blocks.shape), state.model.dtype, cfg.grad_accum,
-               cfg.remat, id(state.model), id(state.optimizer), id(store),
-               id(audio_feats), id(vgg))
-        graph = self.graphs.get(key)
-        if graph is None:
-            graph = _StepGraph(self.body, state, store, audio_feats, vgg,
-                               blocks)
-            self.graphs[key] = graph
-            # the objects the key names stay referenced by the graph's
-            # entry, so their ids cannot be reused while it lives
-            graph.refs = (state.model, state.optimizer, store, audio_feats,
-                          vgg)
-        return graph.run(state, blocks)
+        if self.graph is None or not self.graph.captured_for(
+                state, store, audio_feats, vgg, blocks):
+            self.graph = None  # the old graph and its pool go first
+            self.graph = _StepGraph(self.body, state, store, audio_feats,
+                                    vgg, blocks)
+        return self.graph.run(state, blocks)
 
 
 def make_resident_multi_step(train_cfg: TrainConfig,
@@ -606,9 +622,9 @@ def make_resident_multi_step(train_cfg: TrainConfig,
     - On the CPU the K steps run one after another (JAX's unrolled form
       on the CPU).
     - On the card they run as one captured ``torch.cuda.CUDAGraph``
-      (:class:`_StepGraph`), made at the first call for each (K, B, dtype,
-      ``grad_accum``, ``remat``, state, store, features, VGG) and replayed
-      once a block: the host uploads the (K, B) index block into the
+      (:class:`_StepGraph`), captured at the first call and again when
+      the block's shape, the state, the store, the features or the VGG
+      differ from the last capture's, and replayed once a block: the host uploads the (K, B) index block into the
       graph's static buffer and replays. Over an NCCL group the gradient,
       metric and BatchNorm all-reduces are captured too.
     - Over a gloo group core/mesh.py stages collectives through host

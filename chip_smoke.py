@@ -67,13 +67,17 @@ then, on the card and with no fallback anywhere:
      generator.pth served through the kernels; (f) K steps a dispatch
      (make_resident_multi_step, one CUDA graph of the resident step
      replayed a (K, B) block): a K=4 dispatch against 4 eager steps in
-     bf16 and in fp32 with TF32 off (the losses within two eager runs'
-     spread, the weights within 2 lr K, in fp32 the BatchNorm statistics
-     at rtol 1e-6), ms a step for eager steps and K = 4 and 8 over the
-     same 64 steps with each graph's capture seconds, peak memory, busy
-     share and the attention launches its replays ran, then step 2 with
-     steps_per_dispatch 4 (JAX's steps an epoch) preempted by SIGTERM and
-     resumed.
+     bf16, in fp32 with TF32 off, and in bf16 with remat and with two
+     microbatches a step (the eager steps with the graph's capturable
+     Adam; the losses, weights and BatchNorm statistics
+     within two eager runs' spread under deterministic algorithms, the
+     weights within 2 lr K, in fp32 the statistics at rtol 1e-6), ms a
+     step for eager steps and K = 4 and 8 over the same 64 steps with
+     each graph's capture seconds, peak memory, busy share and the
+     attention launches its replays ran (those in the profiler's trace
+     against those counted), the eager step with a plain and a
+     capturable Adam (ABBA), then step 2 with steps_per_dispatch 4
+     (JAX's steps an epoch) preempted by SIGTERM and resumed.
 
   8. clones and serves many speakers (run before 7, with seeded weights;
      the face models compute their convs as fp32 products on the card,
@@ -176,8 +180,10 @@ Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
 7c, 7d, 7f, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b) reads the launch
 counters, set to 0 just before it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
-attention is the kernel). A CUDA graph's replays count the attention
-launches they run (the kernels line's ``launches_in_graph_replays``).
+attention is the kernel), twice that with remat or two microbatches. A
+CUDA graph's replays count the kernel launches their capture recorded
+(kernels.note_replay; the kernels line's ``launches_in_graph_replays``),
+and 7f holds that count to the profiler's trace of a replay.
 
 Prints every phase's wall seconds, the card's name and power limit, a
 {"kernels": [...]} line and,
@@ -552,9 +558,11 @@ def profile_request(torch, synth, feats):
 
 def device_profile(torch, fn, what: str):
     """``fn`` under torch.profiler: its wall time, the device's busy share
-    (kernel time over wall time; one stream, so kernels do not overlap)
-    and the kernels with the most device time. The profiler slows the
-    host, so the busy share it shows is an upper bound."""
+    (kernel time over wall time; one stream, so kernels do not overlap),
+    the kernels with the most device time and each kernel's launches in
+    the trace (``kernel_launches``, CUDA graph replays' included). The
+    profiler slows the host, so the busy share it shows is an upper
+    bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -564,9 +572,11 @@ def device_profile(torch, fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, spans = [], []
+    kernels, spans, launches = [], [], {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                launches[e.key] = launches.get(e.key, 0) + e.count
             us = getattr(e, "self_device_time_total", None)
             if us is None:  # the attribute's name before torch 2.4
                 us = e.self_cuda_time_total
@@ -579,7 +589,8 @@ def device_profile(torch, fn, what: str):
     if busy_ms == 0:
         print(f"profiled {what}: the profiler recorded no device time "
               "(device busy share not measured)")
-        return {"wall_ms": wall_ms, "device_busy_ms": None}
+        return {"wall_ms": wall_ms, "device_busy_ms": None,
+                "kernel_launches": launches}
     print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall")
     for name, ms in kernels[:8]:
@@ -587,7 +598,7 @@ def device_profile(torch, fn, what: str):
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "top_kernels_ms": kernels[:20], "kernels_ms": kernels,
-            "annotations_ms": spans}
+            "annotations_ms": spans, "kernel_launches": launches}
 
 
 # ------------------------------------------------ audio in, video out
@@ -1406,15 +1417,14 @@ def deterministic(torch):
 def within_spread(torch, got: dict, ref: dict, again: dict, what: str,
                   k: int, bn_rtol=None) -> dict:
     """A K-step dispatch (``got``) against K eager steps (``ref``), with
-    a second eager run of the same steps (``again``) as the yardstick:
-    each loss equal to the eager one, or within the two eager runs'
-    spread (kernels whose sums land in another order from run to run
-    leave one; under :func:`deterministic` none should); every weight
-    within Adam's sign-flip envelope, 2 lr K; with ``bn_rtol``, every
-    BatchNorm running statistic within that bar of the eager run's
-    (relative to the statistic plus its buffer's rms: running means sit
-    near 0), or within the eager spread where it is larger. Each dict:
-    ``loss`` (K floats) and ``state`` (CPU state_dict)."""
+    a second eager run of the same steps (``again``) as the yardstick,
+    all under :func:`deterministic`: each loss, every weight and every
+    BatchNorm running statistic within the two eager runs' spread (0 when
+    they agree to the bit), the weights also within Adam's sign-flip
+    envelope, 2 lr K, and with ``bn_rtol`` the statistics within that
+    bar of the eager run's (relative to the statistic plus its buffer's
+    rms: running means sit near 0). Each dict: ``loss`` (K floats) and
+    ``state`` (CPU state_dict)."""
     spread = max(abs(a - b) for a, b in zip(ref["loss"], again["loss"]))
     diff = max(abs(a - b) for a, b in zip(got["loss"], ref["loss"]))
 
@@ -1431,23 +1441,42 @@ def within_spread(torch, got: dict, ref: dict, again: dict, what: str,
             w = max(w, float(d.max()))
         return w
 
-    weights = worst(got, ref, False)
+    weights, w_spread = worst(got, ref, False), worst(again, ref, False)
     bn, bn_spread = worst(got, ref, True), worst(again, ref, True)
     print(f"{what}: losses {', '.join(f'{x:.7f}' for x in got['loss'])}; "
           f"against {k} eager steps max diff {diff:.3g}, two eager runs "
-          f"{spread:.3g}; weights max diff {weights:.3g} (envelope "
-          f"{2 * MC_LR * k:g}); BatchNorm statistics max relative diff "
-          f"{bn:.3g} (two eager runs {bn_spread:.3g})")
+          f"{spread:.3g}; weights max diff {weights:.3g} (two eager runs "
+          f"{w_spread:.3g}, envelope {2 * MC_LR * k:g}); BatchNorm "
+          f"statistics max relative diff {bn:.3g} (two eager runs "
+          f"{bn_spread:.3g})")
     check(diff <= spread, f"{what}: losses {got['loss']} against the eager "
                           f"{ref['loss']}, beyond the eager spread {spread}")
-    check(weights <= 2 * MC_LR * k * (1 + 1e-3) + 1e-5,
-          f"{what}: weights outside Adam's envelope")
-    if bn_rtol is not None:
-        check(bn <= max(bn_rtol, bn_spread),
-              f"{what}: BatchNorm statistics at {bn} relative")
+    check(weights <= w_spread and weights <= 2 * MC_LR * k,
+          f"{what}: weights {weights} from the eager run's, beyond the "
+          f"eager spread {w_spread}")
+    check(bn <= bn_spread and (bn_rtol is None or bn <= bn_rtol),
+          f"{what}: BatchNorm statistics at {bn} relative, the eager "
+          f"spread {bn_spread}")
     return dict(loss=got["loss"], eager_loss=ref["loss"], loss_diff=diff,
-                eager_spread=spread, max_weight_diff=weights, bn_rel=bn,
+                eager_spread=spread, max_weight_diff=weights,
+                weight_eager_spread=w_spread, bn_rel=bn,
                 bn_rel_eager_spread=bn_spread)
+
+
+def train_launches(tcfg) -> dict:
+    """The kernels' launches of one train step under ``tcfg``: one
+    forward per microbatch, and with ``remat`` its recompute in the
+    backward."""
+    n = tcfg.grad_accum * (2 if tcfg.remat else 1)
+    return {name: c * n for name, c in TRAIN_LAUNCHES.items()}
+
+
+def attention_in_trace(prof: dict) -> int:
+    """The attention kernel's launches in a torch.profiler trace: the
+    port's kernels in it (``calipsync::``), which on the train path are
+    the attention's alone (TRAIN_LAUNCHES)."""
+    return sum(n for name, n in prof.get("kernel_launches", {}).items()
+               if "calipsync::" in name)
 
 
 def index_pool(ds, n: int, seed: int) -> list:
@@ -1462,14 +1491,15 @@ def index_pool(ds, n: int, seed: int) -> list:
 def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
     """(f) K steps a dispatch (train/trainer.py make_resident_multi_step,
     one CUDA graph of the resident step replayed a block), at the clone
-    recipe (B=16, bf16, the perceptual term on) and in fp32 with TF32 off:
-    one K=4 dispatch against 4 eager steps from the same state, under
-    deterministic algorithms (within_spread; the BatchNorm statistics at
-    rtol 1e-6 in fp32); ms a
-    step of eager steps and of K = 4 and 8 dispatches over the same 64
-    steps, each graph's capture seconds (warm-up included), peak device
-    memory, the device's busy share under torch.profiler and the
-    attention launches its replays ran; then step2 with
+    recipe (B=16, bf16, the perceptual term on), in fp32 with TF32 off, and
+    at the recipe with remat and with grad_accum 2: one K=4 dispatch
+    against 4 eager steps from the same state with the same (capturable)
+    Adam update, under deterministic algorithms (within_spread; the
+    BatchNorm statistics also at rtol 1e-6 in fp32); ms a step of eager steps and of K = 4 and 8 dispatches over
+    the same 64 steps, each graph's capture seconds (warm-up included),
+    peak device memory, the device's busy share under torch.profiler and
+    the attention launches its replays ran, held to the profiler's trace;
+    the eager step with Adam plain and capturable; then step2 with
     steps_per_dispatch 4 (multi_step_pipeline). Returns the launch counts
     of each path."""
     from calipsync_tpu_torch import kernels
@@ -1489,38 +1519,48 @@ def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
     pool = index_pool(ds, MULTI_STEPS, 1)
     vggs = {}
 
-    def fresh(dtype):
+    def fresh(dtype, cfg=tcfg):
         model = Generator(dtype=dtype)
         model.load_state_dict(base_sd, strict=True)
         if dtype not in vggs:
             vggs[dtype] = load_vgg19(vgg_path, dtype, "cuda")
-        return trainer.create_train_state(model.cuda(), tcfg), vggs[dtype]
+        return trainer.create_train_state(model.cuda(), cfg), vggs[dtype]
 
     def snapshot(state):
         return {k: v.detach().float().cpu()
                 for k, v in state.model.state_dict().items()}
 
-    def eager(dtype, block):
-        state, vgg = fresh(dtype)
-        step = trainer.make_resident_train_step(tcfg)
+    def eager(dtype, cfg, block):
+        state, vgg = fresh(dtype, cfg)
+        # the update a graph captures (a plain Adam's rounds otherwise)
+        state.optimizer.make_capturable()
+        step = trainer.make_resident_train_step(cfg)
         loss = [float(step(state, ds.store, *block[:, i], feats, vgg)[
             "loss"]) for i in range(block.shape[1])]
         return dict(loss=loss, state=snapshot(state))
 
-    # equality: one K=4 dispatch against 4 eager steps, twice measured
+    # equality: one K=4 dispatch against 4 eager steps, twice measured; the
+    # clone recipe, fp32 with TF32 off, and the recipe with remat and with
+    # two microbatches a step (each captured with its recompute or its
+    # microbatches)
     block = dispatch_blocks(pool[:MULTI_K], MULTI_K)[0]
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    for dtype, bn_rtol in ((torch.bfloat16, None), (torch.float32, 1e-6)):
-        name = str(dtype)[6:]
+    cases = (("bfloat16", torch.bfloat16, tcfg, None),
+             ("float32", torch.float32, tcfg, 1e-6),
+             ("bfloat16_remat", torch.bfloat16,
+              dataclasses.replace(tcfg, remat=True), None),
+             ("bfloat16_grad_accum2", torch.bfloat16,
+              dataclasses.replace(tcfg, grad_accum=2), None))
+    for name, dtype, cfg, bn_rtol in cases:
         if dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         try:
             with deterministic(torch):
-                a, b = eager(dtype, block), eager(dtype, block)
-                state, vgg = fresh(dtype)
-                fn = trainer.make_resident_multi_step(tcfg)
+                a, b = eager(dtype, cfg, block), eager(dtype, cfg, block)
+                state, vgg = fresh(dtype, cfg)
+                fn = trainer.make_resident_multi_step(cfg)
                 kernels.reset_launches()
                 m = fn(state, ds.store, *block, feats, vgg)
                 torch.cuda.synchronize()
@@ -1531,11 +1571,15 @@ def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
              torch.backends.cuda.matmul.allow_tf32) = flags
         check(fn.graphed and state.step == MULTI_K,
               f"7f {name}: graphed {fn.graphed}, step {state.step}")
-        # the first dispatch: the warm-up's eager steps and one replay
+        # the first dispatch: the warm-up's eager steps and one replay of
+        # a graph that captured K steps' launches
+        per_step = train_launches(cfg)
         want = {k: c * (trainer.GRAPH_WARMUP_STEPS + MULTI_K)
-                for k, c in TRAIN_LAUNCHES.items()}
-        check(counts == want, f"7f {name}: launches {counts}, expected "
-                              f"{want}")
+                for k, c in per_step.items()}
+        check(counts == want and fn.graph.launches == {
+            k: c * MULTI_K for k, c in per_step.items()},
+            f"7f {name}: launches {counts}, captured {fn.graph.launches}; "
+            f"expected {want}")
         paths[f"7f_first_dispatch_{name}"] = counts
         REPLAYED[f"7f_first_dispatch_{name}"] = \
             kernels.cross_attention.replayed
@@ -1546,8 +1590,10 @@ def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
         torch.cuda.empty_cache()
 
     # timing at the clone recipe: the same 64 steps each way
-    def timed(k):
+    def timed(k, capturable=False, profiled=True):
         state, vgg = fresh(torch.bfloat16)
+        if capturable:
+            state.optimizer.make_capturable()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if k == 1:
@@ -1574,18 +1620,35 @@ def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
         check(counts == {n: c * MULTI_STEPS for n, c in
                          TRAIN_LAUNCHES.items()},
               f"7f K={k}: launches {counts} over {MULTI_STEPS} steps")
-        n = max(k, MULTI_K)  # profile 4 eager steps against one dispatch
-        prof = device_profile(
-            torch, lambda: [fn(state, ds.store, *blk, feats, vgg)
-                            for blk in blocks[:n // k]],
-            f"{n} steps, K={k} (bf16, B={TRAIN_BATCH})")
+        out = dict(ms=ms, first_s=first_s, peak_bytes=peak,
+                   launches=counts, replayed=replayed)
+        if profiled:
+            # 4 eager steps against one dispatch; the attention launches
+            # in the trace (a replay's are the graph's kernel nodes) must
+            # be those its wrapper counted: the captured count a replay
+            n = max(k, MULTI_K)
+            before = kernels.cross_attention.launches
+            prof = device_profile(
+                torch, lambda: [fn(state, ds.store, *blk, feats, vgg)
+                                for blk in blocks[:n // k]],
+                f"{n} steps, K={k} (bf16, B={TRAIN_BATCH})")
+            counted = kernels.cross_attention.launches - before
+            traced = attention_in_trace(prof)
+            if k > 1:
+                check(counted == fn.graph.launches["cross_attention"]
+                      * (n // k), f"7f K={k}: {counted} attention launches "
+                      f"counted, the graph captured "
+                      f"{fn.graph.launches['cross_attention']}")
+            check(traced == counted == TRAIN_LAUNCHES["cross_attention"] * n,
+                  f"7f K={k}: the profiler traced {traced} attention "
+                  f"launches over {n} steps, the wrapper counted {counted}")
+            out.update(busy=prof.get("device_busy_share"),
+                       traced_attention_launches=traced,
+                       profile={k2: v for k2, v in prof.items()
+                                if k2 != "kernels_ms"})
         del state, fn
         torch.cuda.empty_cache()
-        return dict(ms=ms, first_s=first_s, peak_bytes=peak,
-                    launches=counts, replayed=replayed,
-                    busy=prof.get("device_busy_share"),
-                    profile={k2: v for k2, v in prof.items()
-                             if k2 != "kernels_ms"})
+        return out
 
     timing = {k: timed(k) for k in (1,) + MULTI_KS}
     res["timing"] = timing
@@ -1598,9 +1661,23 @@ def multi_step_phase(torch, data, base, vgg_path, out) -> dict:
               f"{t['first_s']:.2f} s; peak device memory "
               f"{t['peak_bytes'] / 2**30:.3f} GiB; device busy {busy}; "
               f"attention launches {t['launches']['cross_attention']} "
-              f"({t['replayed']} of them in graph replays)")
+              f"({t['replayed']} of them in graph replays; in the "
+              f"profiler's trace of {max(k, MULTI_K)} steps "
+              f"{t['traced_attention_launches']}, as counted)")
         paths[f"7f_timed_k{k}"] = t["launches"]
         REPLAYED[f"7f_timed_k{k}"] = t["replayed"]
+    # what a capturable Adam (its step count on the device, as a captured
+    # optimizer's) costs an eager step: plain, capturable, capturable,
+    # plain, each over the same 64 steps
+    ab = {"plain": [timing[1]["ms"]], "capturable": []}
+    for capturable in (True, True, False):
+        t = timed(1, capturable=capturable, profiled=False)
+        ab["capturable" if capturable else "plain"].append(t["ms"])
+    res["eager_adam_ab_ms"] = ab
+    print(f"7f eager bf16 B={TRAIN_BATCH} step, Adam plain against "
+          f"capturable (ABBA, {MULTI_STEPS} steps each): plain "
+          f"{', '.join(f'{x:.2f}' for x in ab['plain'])} ms, capturable "
+          f"{', '.join(f'{x:.2f}' for x in ab['capturable'])} ms")
     paths.update(multi_step_pipeline(torch, data, base, vgg_path, pool,
                                      res))
     return paths
@@ -3792,7 +3869,8 @@ def mc_multi_step(torch, sd, feats, mesh, what: str, k: int,
                   graphed: bool):
     """K resident DP steps a dispatch over ``mesh`` (fp32, B=16 global,
     no perceptual term, a random store of 64 crops) against K per-step DP
-    calls from the same state, under deterministic algorithms
+    calls from the same state (with the captured Adam update where the
+    dispatch is a graph), under deterministic algorithms
     (within_spread); ``graphed``: whether the
     dispatch must be a CUDA graph replay (NCCL) or eager (gloo).
     Returns the comparison and the dispatch's launch counts."""
@@ -3819,6 +3897,8 @@ def mc_multi_step(torch, sd, feats, mesh, what: str, k: int,
 
     def per_step():
         st = state()
+        if graphed:  # the update a graph captures
+            st.optimizer.make_capturable()
         step = trainer.make_resident_train_step(tcfg, mesh=mesh)
         loss = [float(step(st, store, *block[:, i], f)["loss"])
                 for i in range(k)]

@@ -302,6 +302,26 @@ def test_cpu_wrappers_launch_no_kernel():
     assert launch_counts() == before
 
 
+def test_graph_replays_count_their_captured_launches():
+    """A CUDA graph's replay counts, in ``launches`` and ``replayed``,
+    the launches its capture recorded (``captured``, taken apart from
+    ``launches``): kernels.note_replay, as train/trainer.py's graph calls
+    it; reset_launches zeroes both counts and leaves ``captured``."""
+    from calipsync_tpu_torch import kernels
+
+    captured = kernels.captured_counts()
+    assert set(captured) == set(launch_counts())
+    kernels.reset_launches()
+    kernels.note_replay({"cross_attention": 4, "fused_ir": 0})
+    kernels.note_replay({"cross_attention": 4})
+    assert launch_counts() == {"fused_ir": 0, "depthwise3x3": 0,
+                               "cross_attention": 8}
+    assert cross_attention.replayed == 8
+    kernels.reset_launches()
+    assert sum(launch_counts().values()) == cross_attention.replayed == 0
+    assert kernels.captured_counts() == captured
+
+
 def _bn_np(rng, c):
     return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
             "bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}, \

@@ -4,9 +4,14 @@ blocks of pipelines/step2_train.py) against the JAX package on the CPU in
 fp32.
 
 Weights cross by ``from_jax_generator`` (one attention block), inputs come
-from numpy seeds; K=2 steps of B=2. JAX's ``make_resident_multi_step`` is
-compiled once for the module and runs on a thread of its own while the
-port steps (XLA and torch release the GIL while they compute). The bars
+from numpy seeds; K=2 steps of B=2. The port's K steps run as one
+dispatch; JAX's ``make_resident_multi_step`` runs them as K dispatches of
+one step each, so that it compiles a one-step program once for the module
+instead of an unrolled K-step one (its state carries from dispatch to
+dispatch as from step to step: tests/test_train_step.py holds its K-step
+dispatch to K single steps at rtol 1e-6). It runs on a thread of its own
+while the port steps (XLA and torch release the GIL while they compute).
+The bars
 are those that tests/test_torch_train.py holds one train step to against
 JAX: the first step's losses at rtol 1e-3 / atol 1e-5, and the parameters
 at that bar plus Adam's sign-flip envelope, 2 lr a step (a near-zero
@@ -15,9 +20,11 @@ either way), so 2 lr K here. A later step's losses are held at rtol 5e-3
 (LATER_LOSS_RTOL): they are computed from parameters that already differ
 by those sign flips. On this block the port's second loss moves by 1.1e-3
 of itself with the intra-op thread count alone (2 threads against 4) and
-sits 3e-4 to 8e-4 from the same two steps in fp64; JAX's sits 1.5e-3 from
-them and 1.15e-3 from the port's at 2 threads. A second step that missed
-the carry (computed from the initial parameters) is 1.25e-2 off.
+sits 3e-4 to 8e-4 from the same two steps in fp64; JAX's unrolled two-step
+program sits 1.5e-3 from them, and JAX's second loss, from either that
+program or two one-step dispatches, 1.15e-3 from the port's at 2 threads.
+A second step that missed the carry (computed from the initial
+parameters) is 1.25e-2 off.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -61,9 +68,9 @@ def _two_threads():
 
 
 def _jax_multi_step(variables, store, blocks, feats):
-    """JAX's make_resident_multi_step on a 1-device CPU mesh (its scan
-    unrolled there), no perceptual term: (losses (K,), params as the
-    port's keys, step)."""
+    """JAX's make_resident_multi_step on a 1-device CPU mesh, no
+    perceptual term, over the K rows of ``blocks`` as K dispatches of one
+    step: (losses (K,), params as the port's keys, step)."""
     mesh = make_mesh(data=1)
     tcfg = jax_config.TrainConfig(batch_size=B)
     model = jax_trainer.build_model(
@@ -71,19 +78,23 @@ def _jax_multi_step(variables, store, blocks, feats):
     tx = jax_trainer.adam(tcfg)
     fn = jax_trainer.make_resident_multi_step(model, tx, mesh, tcfg,
                                               use_perceptual=False)
-    state = jax_trainer.create_train_state(
+    state = replicate(jax_trainer.create_train_state(
         model, tx, jax.random.key(0),
-        jax.tree_util.tree_map(jnp.asarray, variables))
-    state, metrics = fn(replicate(state, mesh), replicate(store, mesh),
-                        *(jnp.asarray(b) for b in blocks),
-                        replicate(jnp.asarray(feats), mesh), {})
+        jax.tree_util.tree_map(jnp.asarray, variables)), mesh)
+    store, feats = (replicate(jnp.asarray(a), mesh) for a in (store, feats))
+    ms = []
+    for i in range(K):
+        state, m = fn(state, store,
+                      *(jnp.asarray(b[i:i + 1]) for b in blocks), feats, {})
+        ms.append(m)
+    metrics = {k: np.concatenate([np.asarray(m[k]) for m in ms])
+               for k in ms[0]}
     params = export_generator(
         {"params": jax.tree_util.tree_map(np.asarray, state.params),
          "batch_stats": jax.tree_util.tree_map(np.asarray,
                                                state.batch_stats)},
         mode="hubert", n_blocks=N_BLOCKS)
-    return ({k: np.asarray(v) for k, v in metrics.items()}, params,
-            int(state.step))
+    return metrics, params, int(state.step)
 
 
 def _inputs():
