@@ -86,10 +86,9 @@ class Adam(torch.optim.Adam):
     count on the device, so that a captured update reads and advances it
     there; only an optimizer that :func:`make_resident_multi_step`
     captures takes it, and the eager steps keep PyTorch's default update,
-    whose step count stays on the host (the capturable update made an
-    eager bf16 step at B=16 7-24 ms slower on an H100, chip_smoke.py 7f;
-    it also rounds differently, so a dispatch equals eager steps to the
-    bit only when they take the capturable update).
+    whose step count stays on the host (chip_smoke.py 7f times both on
+    the card; the capturable update also rounds differently, so a
+    dispatch equals eager steps to the bit only when they take it).
     :meth:`load_state_dict` keeps this optimizer's own ``capturable`` (a
     checkpoint written by a captured optimizer loads into any other, and
     any checkpoint into a captured one) and copies into the state tensors
