@@ -173,3 +173,10 @@ def load_config(path: str | pathlib.Path | None = None,
                     dst[k] = v
         merge(data, overrides)
     return _check_supported(_from_dict(PipelineConfig, data))
+
+
+def save_config(cfg: PipelineConfig, path: str | pathlib.Path) -> None:
+    """Write ``cfg`` as indented JSON, the file :func:`load_config` (and
+    the JAX package's) reads."""
+    pathlib.Path(path).write_text(
+        json.dumps(dataclasses.asdict(cfg), indent=2))

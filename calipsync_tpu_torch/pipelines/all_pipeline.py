@@ -34,6 +34,8 @@ def clone_video_local(video_path: str, output_base_dir: str,
                       vgg_path: Optional[str] = None,
                       unet_checkpoint: Optional[str] = None,
                       cfg: PipelineConfig = PipelineConfig(),
+                      cleanup: bool = True,
+                      xseg_model_path: Optional[str] = None,
                       timings: Optional[dict] = None,
                       device=None) -> tuple[str, str]:
     """The whole clone. Returns (path of the fine-tuned ``generator.pth``,
@@ -41,9 +43,12 @@ def clone_video_local(video_path: str, output_base_dir: str,
     infer_data``. The video's audio is a wav side-car next to it, or its
     own track (PCM natively, other codecs with ffmpeg).
 
-    timings: an optional dict that receives each stage's wall seconds
-    ('step1_s', 'step2_s', 'step3_s', 'total_s'). device: the training
-    device ('cuda' by default).
+    cleanup: remove the training intermediates at the end (False keeps
+    step 1's data for evaluation). xseg_model_path: an ``xseg.onnx``;
+    step 3 then writes per-frame compositing masks with
+    ``vision.xseg.XSegMaskGenerator``. timings: an optional dict that
+    receives each stage's wall seconds ('step1_s', 'step2_s', 'step3_s',
+    'total_s'). device: the training device ('cuda' by default).
     """
     from calipsync_tpu_torch.pipelines.step1_preprocess import \
         TrainPreprocessor
@@ -74,10 +79,17 @@ def clone_video_local(video_path: str, output_base_dir: str,
                         device=device)
     mark("step2_s")
 
-    InferPreprocessor(lip_detector).process_video(video_path, model_dir)
+    mask_gen = None
+    if xseg_model_path:
+        from calipsync_tpu_torch.vision.xseg import XSegMaskGenerator
+
+        mask_gen = XSegMaskGenerator(model_path=xseg_model_path)
+    InferPreprocessor(lip_detector, mask_generator=mask_gen).process_video(
+        video_path, model_dir)
     mark("step3_s")
 
-    clean_intermediate_data(model_dir)
+    if cleanup:
+        clean_intermediate_data(model_dir)
     if timings is not None:
         timings["total_s"] = time.perf_counter() - t_start
     return os.path.join(weights_dir, GENERATOR_FILE), model_id

@@ -175,9 +175,15 @@ then, on the card and with no fallback anywhere:
      dryrun.run_sections(2) on the card; each rank's launches of the
      parallel paths, every kernel on every rank; each part's seconds, the
      DP step's ms and sharded serving's fps at 1 and 2 ranks.
+ 13. the proof tools (calipsync_tpu_torch/tools/), called through their
+     ``main`` with reduced flags: (a) train_proof, 700 steps at B=32 in
+     bf16 on 250 frames of 480x480 (K=25 steps a CUDA graph replay): the
+     held-out mouth-rect PSNR must rise by PROOF_MIN_GAIN_DB or more; (b)
+     clone_curve, one point (bf16, 5 epochs) on a 10 s talking head with
+     a 4 s held-out clip and HuBERT-large: its gain and sync scores.
 
 Every path that runs the generator (4, the four runs of 6b, 6c, 6d, 7b,
-7c, 7d, 7f, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b) reads the launch
+7c, 7d, 7f, 8c, 9a, 9b, 10e, 11a, 11b, 12a, 12b, 13a, 13b) reads the launch
 counters, set to 0 just before it, just after it, and must show whole forwards: 9/17/4 launches in eval
 mode, 0/0/4 in train mode (the blocks run their plain modules; the
 attention is the kernel), twice that with remat or two microbatches. A
@@ -4204,6 +4210,103 @@ def multi_card(torch, assets, seed: int, out: dict) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ 13 the proofs
+
+# 13a: the held-out mouth-rect gain of 700 bf16 steps; a trainer that does
+# not learn reads about 0 dB
+PROOF_MIN_GAIN_DB = 3.0
+PROOF_TRAIN_FLAGS = ["--train-steps", "700", "--train-batch", "32",
+                     "--train-frames", "250", "--train-res", "480",
+                     "--train-dtype", "bfloat16"]
+PROOF_CURVE_FLAGS = ["--curve-seconds", "10", "--curve-hold-seconds", "4",
+                     "--curve-points", "bfloat16:5", "--curve-recommend", ""]
+
+
+def proof_launches(counts: dict, train_launches: int, what: str) -> int:
+    """The eval-mode forwards in ``counts`` (fused IR and depthwise whole
+    forwards) and, beyond their 4 attention launches each,
+    ``train_launches`` (None: any positive multiple of 4, each a train
+    forward's); returns the forwards."""
+    from calipsync_tpu_torch.kernels.measure import EXPECTED_PER_FORWARD
+
+    n = counts["fused_ir"] // EXPECTED_PER_FORWARD["fused_ir"]
+    extra = counts["cross_attention"] - 4 * n
+    print(f"{what}: launches {counts} = {n} eval forwards + {extra} "
+          f"attention launches in training")
+    check(n > 0 and counts["fused_ir"] == 9 * n
+          and counts["depthwise3x3"] == 17 * n,
+          f"{what}: launches {counts} are not whole eval forwards")
+    check(extra > 0 and extra % 4 == 0
+          and (train_launches is None or extra == train_launches),
+          f"{what}: {extra} attention launches in training, expected "
+          f"{train_launches or 'a positive multiple of 4'}")
+    return n
+
+
+def proofs(torch, out, tmp) -> dict:
+    """Phase 13; returns the launch counts of each tool's run."""
+    from calipsync_tpu_torch import kernels
+    from calipsync_tpu_torch.tools import clone_curve, train_proof
+    from calipsync_tpu_torch.train.trainer import GRAPH_WARMUP_STEPS
+
+    os.makedirs(tmp)
+    paths = {}
+    kernels.reset_launches()
+    with phase("13a train_proof"):
+        r = train_proof.main(PROOF_TRAIN_FLAGS + [
+            "--out", os.path.join(tmp, "train_proof.json")])
+    counts = kernels.launch_counts()
+    replayed = kernels.cross_attention.replayed
+    REPLAYED["13a_train_proof"] = replayed
+    # two eval passes; the graph's warm-up steps run eagerly, its capture
+    # counts in .captured and each replay in .launches
+    proof_launches(counts, 4 * (r["steps"] + GRAPH_WARMUP_STEPS),
+                   "13a train_proof")
+    check(r["graphed"] and replayed == 4 * r["steps"],
+          f"13a: graphed {r['graphed']}, {replayed} attention launches "
+          f"replayed for {r['steps']} steps")
+    gain = r["mouth_rect_gain_db"]
+    rect = [r[k]["psnr_mouth_rect"] for k in ("before", "after")]
+    print(f"13a train_proof ({r['dtype']}, {r['steps']} steps at "
+          f"B={r['batch']}, K={r['k']}): held-out mouth-rect PSNR "
+          f"{rect[0]:.2f} -> {rect[1]:.2f} dB (gain {gain:.2f}, "
+          f"floor {PROOF_MIN_GAIN_DB}); loss {r['loss_first']:.4f} -> "
+          f"{r['loss_last']:.4f}; {r['samples_per_s']:.1f} samples/s; first "
+          f"dispatch (capture) {r['first_dispatch_s']:.2f} s; peak "
+          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB")
+    check(np.isfinite([gain, r["loss_first"], r["loss_last"]]).all()
+          and gain >= PROOF_MIN_GAIN_DB,
+          f"13a: held-out mouth-rect gain {gain:.2f} dB < "
+          f"{PROOF_MIN_GAIN_DB}")
+    paths["proof_train"] = counts
+
+    kernels.reset_launches()
+    with phase("13b clone_curve"):
+        c = clone_curve.main(PROOF_CURVE_FLAGS + [
+            "--out", os.path.join(tmp, "clone_curve.json")])
+    counts = kernels.launch_counts()
+    proof_launches(counts, None, "13b clone_curve")
+    point = c["points"][0]
+    sync = point["sync_produced"]
+    print(f"13b clone_curve ({point['dtype']}, {point['epochs']} epochs, "
+          f"{c['seconds']} s clip, {c['hold_seconds']} s held out): "
+          f"held-out mouth-rect PSNR "
+          f"{c['holdout_before']['psnr_mouth_rect']:.2f} -> "
+          f"{point['holdout']['psnr_mouth_rect']:.2f} dB (gain "
+          f"{point['mouth_rect_gain_db']:.2f}); sync of the produced video "
+          f"sim_best {sync['sim_best']}, offset {sync['av_offset_frames']}, "
+          f"LSE-C {sync['lse_c']}, LSE-D {sync['lse_d']}; of the original "
+          f"sim_best {c['sync_original_ceiling']['sim_best']}; train "
+          f"{point['train_wall_s']:.1f} s, infer {point['infer_wall_s']:.1f} "
+          f"s")
+    check(np.isfinite(point["mouth_rect_gain_db"])
+          and sync["n_frames"] > 0 and np.isfinite(sync["sim_best"]),
+          "13b: clone_curve's point is not finite")
+    paths["proof_curve"] = counts
+    out["proofs"] = {"train_proof": r, "clone_curve": c}
+    return paths
+
+
 def print_kernel_resources(_build):
     """Each compiled kernel's registers, static shared memory, spills and
     any performance warning (from ptxas -v in build/nvcc.log), and the
@@ -4369,6 +4472,7 @@ def main() -> int:
                            os.path.join(work, "tools")))
         with phase("12 many cards"):
             paths.update(multi_card(torch, assets, args.seed, metrics))
+        paths.update(proofs(torch, metrics, os.path.join(work, "proofs")))
 
     kernels_line = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -43,6 +43,10 @@ def _top_level_imports(path: pathlib.Path,
 def test_scan_covers_the_port():
     assert len(SOURCES) > 10
     assert all(p.exists() for p in SOURCES)
+    tools = REPO / "calipsync_tpu_torch" / "tools"
+    assert {p.name for p in SOURCES if p.parent == tools} >= {
+        "__init__.py", "train_proof.py", "clone_proof.py", "clone_curve.py",
+        "hubert_longaudio_delta.py", "soak_streaming.py"}
 
 
 @pytest.mark.parametrize("path", SOURCES,
