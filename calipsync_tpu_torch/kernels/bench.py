@@ -1,17 +1,21 @@
 """Per-launch times of the kernels at the generator's main-path inputs, and
 the fused-IR stage bisect, on one GPU.
 
-    python -m calipsync_tpu_torch.kernels.bench [--bisect] [--dw-sweep]
-                                                [--serving] [--out PATH]
+    python -m calipsync_tpu_torch.kernels.bench [--dtype bfloat16|float32]
+        [--batch N] [--bisect] [--dw-sweep] [--serving] [--out PATH]
 
-Builds the kernels and records the kernel calls of one B=128 bf16
-generator forward (random weights from seed 0). Each launch is held
-against its plain version and timed beside its bound and one PyTorch
-library call computing the same function, on the yardstick that
-``chip_smoke.py`` uses (``kernels/measure.py``); the sums per kernel over
-the forward, the forward's own time, the serving step's compute-only
-fps, and each kernel's host time over the forward and a call (enqueue
-only) follow, through the wrapper and, where the kernels are
+Builds the kernels and records the kernel calls of one generator forward
+(random weights from seed 0) in ``--dtype`` at ``--batch`` (bf16 at
+B=128 by default; the default ``infer`` and ``serve`` path is fp32 at
+B=8). Each launch is held against its plain version and timed beside its
+bound and one PyTorch library call computing the same function, on the
+yardstick that ``chip_smoke.py`` uses (``kernels/measure.py``); in fp32
+the plain version is timed too, the library call with cuDNN's TF32 off
+and on, and the bound in two columns: the operations on the CUDA cores
+(67 TFLOP/s) and as three TF32 tensor-core passes (495 TFLOP/s). The
+sums per kernel over the forward, the forward's own time, the serving
+step's compute-only fps at that batch, and each kernel's host time over
+the forward and a call (enqueue only) follow, through the wrapper and, where the kernels are
 ``torch.library`` ops, through the op and its CUDA implementation alone.
 With ``--serving`` it adds the serving numbers that the host's enqueue
 bounds: multi-stream fps and first frame, and a live-sized window's time
@@ -138,9 +142,10 @@ def _speaker(tmp: str, name: str) -> str:
                                   res=480)
 
 
-def compute_only_fps(model, timer, rows: int = 1024) -> float:
+def compute_only_fps(model, timer, batch: int = BATCH,
+                     rows: int = 1024) -> float:
     """``measure.compute_only_fps`` (chip_smoke.py's compute-only number)
-    of FrameSynthesizer at B=BATCH over ``rows`` feature rows of a
+    of FrameSynthesizer at ``batch`` over ``rows`` feature rows of a
     synthetic 480x480 speaker."""
     import tempfile
 
@@ -152,7 +157,7 @@ def compute_only_fps(model, timer, rows: int = 1024) -> float:
         (rows, 2, 1024)).astype(np.float32)
     with tempfile.TemporaryDirectory() as tmp:
         synth = FrameSynthesizer(None, _speaker(tmp, "s0"), model=model,
-                                 batch_size=BATCH, seed=0,
+                                 batch_size=batch, seed=0,
                                  transfer_format="bgr")
         fps = measure.compute_only_fps(synth, torch.from_numpy(feats).to(
             synth.device, model.dtype), timer)
@@ -339,8 +344,14 @@ def main() -> int:
     ap.add_argument("--bisect", action="store_true")
     ap.add_argument("--dw-sweep", action="store_true")
     ap.add_argument("--serving", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--out", default="kernel_bench.json")
     args = ap.parse_args()
+    if args.dtype != "bfloat16" and (args.bisect or args.dw_sweep):
+        raise SystemExit("--bisect and --dw-sweep time the bf16 kernels")
+    dtype, batch = getattr(torch, args.dtype), args.batch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -351,12 +362,12 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s")
     stop_fn = bisect_fn() if args.bisect else None
     timer = measure.Timer()
-    model = measure.random_generator(torch.bfloat16)
-    x, a = measure.generator_inputs(BATCH, seed=1)
+    model = measure.random_generator(dtype)
+    x, a = measure.generator_inputs(batch, seed=1)
     with torch.inference_mode():
         _, counts, calls = measure.record_forward(model, x, a)
         fwd_ms = timer.ms(lambda: model(x, a), warmup=1, reps=5)
-    fps = compute_only_fps(model, timer)
+    fps = compute_only_fps(model, timer, batch)
     serve = serving(model) if args.serving else None
     if serve:
         ms_, live = serve["multistream_bgr"], serve["live_window"]
@@ -369,8 +380,8 @@ def main() -> int:
               f"{live['first_frame_ms']['median']:.2f} / "
               f"{live['first_frame_ms']['min']:.2f} ms (median / least)")
     del model
-    print(f"generator forward bf16 B={BATCH}: {fwd_ms:.3f} ms, launches "
-          f"{counts}; compute-only {fps:.1f} fps")
+    print(f"generator forward {args.dtype} B={batch}: {fwd_ms:.3f} ms, "
+          f"launches {counts}; compute-only {fps:.1f} fps at B={batch}")
     table = measure.kernel_table()
     host_layers = {layer: host_us_per_forward(fns, calls)
                    for layer, fns in call_layers(table).items()}
@@ -383,8 +394,8 @@ def main() -> int:
             f"{k} {v['min'] / n:.2f} / {v['median'] / n:.2f} us"
             for k, v in times.items()
             for n in [measure.EXPECTED_PER_FORWARD[k]]))
-    totals, rows, failures = measure.time_launches(table, calls, timer,
-                                                   plain=False)
+    totals, rows, failures = measure.time_launches(
+        table, calls, timer, plain=dtype == torch.float32)
     for name, us in host.items():
         totals[name]["host_us"] = us
     with torch.inference_mode():
@@ -421,12 +432,26 @@ def main() -> int:
                       f"{row['library_device_ms']:.4f}), host "
                       f"{row['host_us']:.1f} us a call")
     for name, t in totals.items():
-        print(f"{name} per forward: {t['ms']:.4f} ms, library "
+        print(f"{name} per forward ({args.dtype}, B={batch}, "
+              f"{t['launches']} launches): {t['ms']:.4f} ms, library "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}")
+    if dtype == torch.float32:
+        print("fp32 rows, ms a forward | launches | bound: bytes vs FLOPs / "
+              "67 TFLOP/s | bound: bytes vs 3 x FLOPs / 495 TFLOP/s | plain | "
+              "library TF32 off | library TF32 on")
+        for name, t in totals.items():
+            print(f"  {name} B={batch}: {t['ms']:.4f} | {t['launches']} | "
+                  f"{max(t['bytes_ms'], t['ops_cuda_ms']):.4f} "
+                  f"({t['bytes_ms']:.4f} vs {t['ops_cuda_ms']:.4f}) | "
+                  f"{max(t['bytes_ms'], t['ops_tf32x3_ms']):.4f} "
+                  f"({t['bytes_ms']:.4f} vs {t['ops_tf32x3_ms']:.4f}) | "
+                  f"{t['plain_ms']:.4f} | {t['library_ms']:.4f} | "
+                  f"{t['library_tf32_ms']:.4f}")
     sweep = dw_sweep(calls, timer) if args.dw_sweep else None
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"device": smi, "batch": BATCH, "forward_ms": fwd_ms,
+        json.dump({"device": smi, "dtype": args.dtype, "batch": batch,
+                   "forward_ms": fwd_ms,
                    "compute_only_fps": fps, "serving": serve,
                    "host_us_by_layer": host_layers,
                    "per_forward": totals, "per_launch": rows,

@@ -9,6 +9,7 @@ first frame, multi-stream ticks).
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from types import SimpleNamespace
@@ -23,7 +24,12 @@ from .depthwise import depthwise3x3_plain
 from .fused_ir import LEAKY_SLOPE, fused_inverted_residual_plain
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# Peak rates by the arithmetic a kernel runs: bf16 on the tensor cores,
+# fp32 on the CUDA cores, and fp32 products as three TF32 tensor-core
+# passes (hi.hi + hi.lo + lo.hi: fp32 accuracy at a third of the 495
+# TFLOP/s TF32 rate), which the fp32 fused IR runs.
+PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12,
+            "tf32x3": 495e12 / 3}
 # Kernel vs plain version, (atol, atol per rms, rtol):
 # |kernel - plain| <= atol + atol_per_rms * rms(plain) + rtol * |plain|.
 # fp32: the two differ only in summation order.
@@ -167,7 +173,8 @@ def _bound_ir(x, w1, b1, kd, bd, w2, b2, residual=False):
     nbytes = (_size(x) + b * h * w * cout * s
               + (cin * ch + 9 * ch + ch * cout) * s + 4 * (2 * ch + cout))
     ops = 2 * b * h * w * (cin * ch + 9 * ch + ch * cout)
-    return nbytes, ops, str(x.dtype)
+    fp32 = x.dtype == torch.float32
+    return nbytes, ops, "tf32x3" if fp32 else str(x.dtype)
 
 
 def _bound_attn(q, k, v):
@@ -252,22 +259,41 @@ def record_forward(model, x, a):
     return out, counts, calls
 
 
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """A scope with cuDNN's TF32 flag set to ``on``, restored after."""
+    kept = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = kept
+
+
 def time_launches(table, calls, timer, plain: bool = True):
     """Kernel time (and the plain version's, when ``plain``), library time
     and bound of every recorded launch, each launch first held against its
-    plain version at TOL_BF16; sums per kernel over the forward. Returns
-    (totals by kernel name, per-launch rows, launches that disagree)."""
+    plain version at TOL_FP32 or TOL_BF16 by its dtype; sums per kernel
+    over the forward. The library call of an fp32 launch is timed with
+    cuDNN's TF32 off (``library_ms``, exact fp32) and on
+    (``library_tf32_ms``, PyTorch's default). Each row also carries both
+    fp32 bounds: the operations over the CUDA cores' 67 TFLOP/s
+    (``ops_cuda_ms``) and as three TF32 passes over 495 TFLOP/s
+    (``ops_tf32x3_ms``). Returns (totals by kernel name, per-launch rows,
+    launches that disagree)."""
     per_launch, failures = [], []
-    totals = {n: dict(ms=0.0, plain_ms=0.0 if plain else None,
-                      library_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                      max_abs_err=0.0)
+    keys = ("ms", "plain_ms", "library_ms", "library_tf32_ms", "bound_ms",
+            "bytes_ms", "ops_ms", "ops_cuda_ms", "ops_tf32x3_ms")
+    totals = {n: dict({k: 0.0 for k in keys}, max_abs_err=0.0,
+                      launches=0)
               for n in EXPECTED_PER_FORWARD}
     with torch.inference_mode():
         for name, args, kw in calls:
             k = table[name]
+            fp32 = args[0].dtype == torch.float32
             out = k.kernel(*args, **kw)
             ref = k.plain(*args, **kw)
-            err, ok = max_err(out, ref, TOL_BF16)
+            err, ok = max_err(out, ref, TOL_FP32 if fp32 else TOL_BF16)
             if not ok:
                 failures.append(f"{name} on main-path input "
                                 f"{tuple(args[0].shape)}: max abs err {err}")
@@ -275,29 +301,44 @@ def time_launches(table, calls, timer, plain: bool = True):
             ms = timer.ms(lambda: k.kernel(*args, **kw))
             plain_ms = (timer.ms(lambda: k.plain(*args, **kw), reps=5)
                         if plain else None)
-            library_ms = timer.ms(k.library(*args, **kw))
-            nbytes, ops, dt = k.bound(*args, **kw)
-            bytes_ms, ops_ms = bound_ms(nbytes, ops, dt)
+            with cudnn_tf32(False):
+                library_ms = timer.ms(k.library(*args, **kw))
+            library_tf32_ms = None
+            if fp32:
+                with cudnn_tf32(True):
+                    library_tf32_ms = timer.ms(k.library(*args, **kw))
+            nbytes, ops, rate = k.bound(*args, **kw)
+            bytes_ms, ops_ms = bound_ms(nbytes, ops, rate)
             row = dict(name=name, shape=list(args[0].shape),
                        out_channels=int(args[5].shape[1])
                        if name == "fused_ir" else None,
                        kw=dict(kw), ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms,
+                       library_tf32_ms=library_tf32_ms,
                        bound_ms=max(bytes_ms, ops_ms), bytes=nbytes, ops=ops,
+                       rate=rate, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       ops_cuda_ms=ops / PEAK_OPS["torch.float32"] * 1e3,
+                       ops_tf32x3_ms=ops / PEAK_OPS["tf32x3"] * 1e3,
                        bound_by="bytes" if bytes_ms >= ops_ms else
                        "operations", max_abs_err=err)
             per_launch.append(row)
             print(f"time {name} {row['shape']} {row['kw']}: {ms:.4f} ms"
                   + (f", plain {plain_ms:.4f}" if plain else "")
-                  + f", library {library_ms:.4f}, bound "
-                  f"{row['bound_ms']:.4f} ({row['bound_by']})")
+                  + f", library {library_ms:.4f}"
+                  + (f" (TF32 on {library_tf32_ms:.4f})" if fp32 else "")
+                  + f", bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+                  f"{rate})")
             t = totals[name]
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            for key in keys:
                 if row[key] is not None:
                     t[key] += row[key]
-            t["bytes_ms"] += bytes_ms
-            t["ops_ms"] += ops_ms
+            t["launches"] += 1
             t["max_abs_err"] = max(t["max_abs_err"], err)
+    for t in totals.values():
+        if not plain:
+            t["plain_ms"] = None
+        if not t["library_tf32_ms"]:
+            t["library_tf32_ms"] = None
     return totals, per_launch, failures
 
 

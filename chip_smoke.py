@@ -17,8 +17,9 @@ then, on the card and with no fallback anywhere:
      compares the two, checks the launch counts per forward (fused IR 9,
      depthwise 17, attention 4), that the output is not saturated and
      that the audio reaches it; compares the two in bf16 at the streaming
-     defaults' batch 8 and head batch 4 too, and in fp32 at B=4 at the
-     repo's tolerance;
+     defaults' batch 8 and head batch 4 too, and in fp32 (what `infer`
+     and `serve` run by default) at B=4 and B=8 at the repo's tolerance,
+     then times the fp32 forward at B=8, 4 and 128;
   3. times every kernel launch of that forward on its own inputs (CUDA
      events, L2 flushed before each repetition): the
      kernel, its plain version and one PyTorch library call computing the
@@ -27,8 +28,8 @@ then, on the card and with no fallback anywhere:
      peak, whichever is larger);
   4. serves: FrameSynthesizer over a synthetic speaker, batch 128, 1024
      feature rows per request, bgr and yuv420 requests and one request
-     with a 4-frame head batch; prints fps, compute-only fps and
-     first-frame latency;
+     with a 4-frame head batch; prints fps, compute-only fps (and that
+     of the default fp32 step at B=8) and first-frame latency;
   5. profiles one more bgr request with torch.profiler: the device's busy
      share of the request and the kernels with the most device time;
   6. audio in, video out (random weights, synthetic wavs from --seed),
@@ -411,8 +412,8 @@ def run_generator(torch, timer):
     of one B=128 bf16 forward."""
     from calipsync_tpu_torch.config import InferConfig
     from calipsync_tpu_torch.kernels.measure import (
-        EXPECTED_PER_FORWARD, generator_inputs, max_err, random_generator,
-        record_forward, tol_text)
+        EXPECTED_PER_FORWARD, cudnn_tf32, generator_inputs, max_err,
+        random_generator, record_forward, tol_text)
 
     model = random_generator(torch.bfloat16)
     plain = random_generator(torch.bfloat16, ops="plain")
@@ -454,16 +455,28 @@ def run_generator(torch, timer):
         print(f"generator forward bf16 B={BATCH}: {fwd_ms:.3f} ms "
               f"(plain versions {plain_ms:.3f} ms)")
 
+        # fp32: what `infer` and `serve` run by default (B=8, head batch
+        # 4), checked at both batches, then timed there and at B=128
         m32 = random_generator(torch.float32)
         p32 = random_generator(torch.float32, ops="plain")
-        x4, a4 = generator_inputs(4, seed=2)
-        o32, r32 = m32(x4, a4), p32(x4, a4)
-        err32, ok32 = max_err(o32, r32, GEN_FP32_TOL)
-        print(f"generator fp32 B=4: kernels vs plain max abs err "
-              f"{err32:.3g} ({tol_text(GEN_FP32_TOL)})")
-        check(ok32, "fp32 generator: kernels and plain versions disagree")
-    del plain, m32, p32
-    return calls, fwd_ms
+        for b in (4, icfg.batch_size):
+            xb, ab = generator_inputs(b, seed=2)
+            o32, r32 = m32(xb, ab), p32(xb, ab)
+            err32, ok32 = max_err(o32, r32, GEN_FP32_TOL)
+            print(f"generator fp32 B={b}: kernels vs plain max abs err "
+                  f"{err32:.3g} ({tol_text(GEN_FP32_TOL)})")
+            check(ok32, f"fp32 generator B={b}: kernels and plain versions "
+                        f"disagree")
+        del p32
+        fp32_ms = {}
+        with cudnn_tf32(True):  # PyTorch's default, as `infer` runs
+            for b in (icfg.batch_size, icfg.first_window_batch, BATCH):
+                xb, ab = generator_inputs(b, seed=b)
+                fp32_ms[b] = timer.ms(lambda: m32(xb, ab), warmup=1, reps=5)
+                print(f"generator forward fp32 B={b}: {fp32_ms[b]:.3f} ms "
+                      f"(cuDNN's TF32 on outside the kernels, the default)")
+    del plain, m32
+    return calls, fwd_ms, fp32_ms
 
 
 def serve(torch, timer):
@@ -477,6 +490,7 @@ def serve(torch, timer):
 
     from calipsync_tpu_torch.kernels.measure import (EXPECTED_PER_FORWARD,
                                                      compute_only_fps,
+                                                     cudnn_tf32,
                                                      random_generator,
                                                      timed_request)
 
@@ -531,6 +545,18 @@ def serve(torch, timer):
                                                        timer)
         print(f"compute-only (device step, bgr, B={BATCH}): "
               f"{metrics['compute_only_fps']:.2f} fps")
+        # the default infer/serve device step: the fp32 generator at B=8
+        icfg = InferConfig()
+        s32 = FrameSynthesizer(None, data, model=random_generator(
+            torch.float32), batch_size=icfg.batch_size, seed=0,
+            transfer_format="bgr")
+        with cudnn_tf32(True):
+            metrics["compute_only_fps_fp32_b8"] = compute_only_fps(
+                s32, torch.from_numpy(feats).to(dev), timer)
+        s32.close()
+        print(f"compute-only (device step, bgr, fp32, "
+              f"B={icfg.batch_size}, PyTorch's default flags): "
+              f"{metrics['compute_only_fps_fp32_b8']:.2f} fps")
         phys = torch.arange(BATCH, device=dev) % synth.total_frames
         idx = torch.arange(BATCH, device=dev)
         rows = synth._generate_resident_fns["bgr"](synth._crops_dev, phys,
@@ -1088,7 +1114,9 @@ def streaming_phase(torch, ex, model, data, tmp, seed, out):
 def cli_phase(torch, ex, data, tmp, seed, out):
     """(d) ``python -m calipsync_tpu_torch.cli infer`` in a subprocess on a
     2 s wav, with a reference-layout generator .pth and an HF-layout
-    HuBERT-large directory written here, bf16 at B=128 by a config file."""
+    HuBERT-large directory written here: bf16 at B=128 by a config file,
+    then the default path (no config: fp32 at B=8). Returns each run's
+    launch counts by path."""
     from calipsync_tpu_torch.audio.io import save_wav
     from calipsync_tpu_torch.core.weights import (from_jax_generator,
                                                   random_jax_generator)
@@ -1107,26 +1135,36 @@ def cli_phase(torch, ex, data, tmp, seed, out):
                    "infer": {"batch_size": BATCH}}, f)
     wav = os.path.join(tmp, "short.wav")
     save_wav(wav, tone_wav(2.0, seed + 4), 16_000)
-    mp4 = os.path.join(tmp, "cli.mp4")
-    cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "infer",
-           "--assets", data, "--ckpt", ckpt, "--hubert", hub, "--audio",
-           wav, "--out", mp4, "--config", cfg, "--seed", "0"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
-    if proc.returncode:
-        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-    check(proc.returncode == 0, f"cli infer exited {proc.returncode}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"cli infer (subprocess, {wall:.1f} s with start-up and loading "
-          f"1.26 GB of HuBERT): {res}")
-    check(os.path.exists(mp4) and os.path.getsize(mp4) > 0
-          and res["frames"] == feature_rows(32_000)
-          and res["device"].startswith("cuda"), "cli infer output")
-    expect_forwards(res["kernel_launches"], "cli infer", 1)
-    out["cli"] = dict(wall_s=wall, result=res)
-    return res["kernel_launches"]
+    from calipsync_tpu_torch.config import InferConfig
+
+    launches = {}
+    default_batch = InferConfig().batch_size
+    for name, extra, batch in (("cli_infer", ["--config", cfg], BATCH),
+                               ("cli_infer_default", [], default_batch)):
+        mp4 = os.path.join(tmp, f"{name}.mp4")
+        cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "infer",
+               "--assets", data, "--ckpt", ckpt, "--hubert", hub, "--audio",
+               wav, "--out", mp4, "--seed", "0", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"{name} ({'bf16' if extra else 'fp32, the default'}, "
+              f"B={batch}; subprocess, {wall:.1f} s with start-up and "
+              f"loading 1.26 GB of HuBERT): {res}")
+        frames = feature_rows(32_000)
+        check(os.path.exists(mp4) and os.path.getsize(mp4) > 0
+              and res["frames"] == frames
+              and res["device"].startswith("cuda"), f"{name} output")
+        expect_forwards(res["kernel_launches"], name, -(-frames // batch))
+        out["cli" if extra else "cli_default"] = dict(wall_s=wall, result=res)
+        launches[name] = res["kernel_launches"]
+    return launches
 
 
 # --------------------------------------------------------------- training
@@ -4391,7 +4429,7 @@ def audio_to_video(torch, seed: int, metrics: dict, tmp: str):
     batch_invariance(model, data, feats, metrics)
     paths["streaming"] = streaming_phase(torch, ex, model, data, tmp,
                                          seed, metrics)
-    paths["cli_infer"] = cli_phase(torch, ex, data, tmp, seed, metrics)
+    paths.update(cli_phase(torch, ex, data, tmp, seed, metrics))
     assets = dict(model=model, data=data,
                   offline_mp4=os.path.join(tmp, "sequential.mp4"),
                   ckpt=os.path.join(tmp, "generator.pth"),
@@ -4439,7 +4477,7 @@ def main() -> int:
     table = measure.kernel_table()
     with phase("1-3 kernels, generator, launch times"):
         check_errors = check_kernels(torch, table)
-        calls, fwd_ms = run_generator(torch, timer)
+        calls, fwd_ms, fp32_ms = run_generator(torch, timer)
         totals, per_launch, failures = measure.time_launches(table, calls,
                                                              timer)
     check(not failures, "; ".join(failures))
@@ -4498,6 +4536,7 @@ def main() -> int:
         for dt, r in metrics["attention_backward"].items()}
     detail = {"device": smi, "batch": BATCH, "per_launch": per_launch,
               "kernels": kernels_line, "generator_forward_ms": fwd_ms,
+              "generator_forward_fp32_ms": fp32_ms,
               "serving": metrics, "phase_seconds": PHASE_SECONDS}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_detail.json"),
