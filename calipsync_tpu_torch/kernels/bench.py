@@ -2,7 +2,8 @@
 the fused-IR stage bisect, on one GPU.
 
     python -m calipsync_tpu_torch.kernels.bench [--dtype bfloat16|float32]
-        [--batch N] [--bisect] [--dw-sweep] [--serving] [--out PATH]
+        [--batch N] [--bisect] [--dw-sweep] [--fp32-phases] [--serving]
+        [--out PATH]
 
 Builds the kernels and records the kernel calls of one generator forward
 (random weights from seed 0) in ``--dtype`` at ``--batch`` (bf16 at
@@ -31,7 +32,10 @@ kernel (which the bf16 path no longer takes) and against every tiling of
 a grid (tiles of 2-20 rows and columns that divide the output, 1-4 runs
 of rows, 2-4 stages), each checked against the plain version first; the
 device time of the planned and simple kernels comes from torch.profiler.
-Results also go to ``--out`` as JSON.
+With ``--fp32-phases`` (``--dtype float32``) it builds a library whose
+fp32 fused-IR kernel adds warp 0's clock64() cycles by phase to device
+counters, and reads each fused-IR launch's shares. Results also go to
+``--out`` as JSON.
 
 Without ``--bisect`` or ``--dw-sweep`` the script needs only the wrappers
 and the generator, so it times an earlier tree's kernels on the same
@@ -62,6 +66,9 @@ STAGES = ["x in, out stored", "+ expand", "+ depthwise", "full"]
 # Phases of the clock64() stamps (warp 0 of each block, barrier waits
 # included)
 PHASES = ["x load wait", "expand", "depthwise+project", "epilogue+store"]
+FP32_PHASES = ["chunk wait", "barrier after split", "expand",
+               "depthwise+project", "epilogue and x staged",
+               "barrier after expand", "weight copies issued", "split"]
 
 
 def device_ms(fn, name_part: str, calls: int = 20) -> float:
@@ -234,6 +241,43 @@ def bisect_fn():
     return fn
 
 
+def fp32_phases_fns():
+    """calipsync_fused_ir and calipsync_fused_ir_fp32_stamps of the library
+    built with the fp32 kernel's phase stamps."""
+    path, _ = _build.build(defines=("CALIPSYNC_FP32_STAMPS",))
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    run = lib.calipsync_fused_ir
+    run.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
+    run.restype = i
+    stamps = lib.calipsync_fused_ir_fp32_stamps
+    stamps.argtypes = [p]
+    stamps.restype = i
+    return run, stamps
+
+
+def fp32_phase_shares(fns, x, w1, b1, kd, bd, w2, b2, residual=False):
+    """One launch of the stamped fp32 kernel: its cycles' share by phase
+    (FP32_PHASES)."""
+    from .fused_ir import kernel_weights
+    run, stamps = fns
+    b, h, w, cin = x.shape
+    ch, cout = w1.shape[1], w2.shape[1]
+    cycles = (ctypes.c_ulonglong * len(FP32_PHASES))()
+    _build.check(stamps(ctypes.addressof(cycles)), "fp32 stamps")  # zeroed
+    weights = kernel_weights(x, w1, b1, kd, bd, w2, b2)
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    _build.check(run(x.data_ptr(), *(t.data_ptr() for t in weights),
+                     out.data_ptr(), _build.dtype_code(x.dtype), b, h, w,
+                     cin, ch, cout, int(residual), LEAKY_SLOPE,
+                     torch.cuda.current_stream().cuda_stream),
+                 "fused_ir fp32 stamps")
+    torch.cuda.synchronize()
+    _build.check(stamps(ctypes.addressof(cycles)), "fp32 stamps")
+    total = sum(cycles) or 1
+    return dict(zip(FP32_PHASES, (c / total for c in cycles)))
+
+
 def run_bisect(fn, x, w1, b1, kd, bd, w2, b2, residual, stop, stamps=None):
     from .fused_ir import kernel_weights
     b, h, w, cin = x.shape
@@ -344,6 +388,7 @@ def main() -> int:
     ap.add_argument("--bisect", action="store_true")
     ap.add_argument("--dw-sweep", action="store_true")
     ap.add_argument("--serving", action="store_true")
+    ap.add_argument("--fp32-phases", action="store_true")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--batch", type=int, default=BATCH)
@@ -351,6 +396,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.dtype != "bfloat16" and (args.bisect or args.dw_sweep):
         raise SystemExit("--bisect and --dw-sweep time the bf16 kernels")
+    if args.fp32_phases and args.dtype != "float32":
+        raise SystemExit("--fp32-phases needs --dtype float32")
     dtype, batch = getattr(torch, args.dtype), args.batch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -361,6 +408,7 @@ def main() -> int:
     _, build_s = _build.build()
     print(f"kernel build: {build_s:.1f} s")
     stop_fn = bisect_fn() if args.bisect else None
+    phase_fns = fp32_phases_fns() if args.fp32_phases else None
     timer = measure.Timer()
     model = measure.random_generator(dtype)
     x, a = measure.generator_inputs(batch, seed=1)
@@ -416,6 +464,12 @@ def main() -> int:
                       + "; cycles " + ", ".join(
                           f"{k} {v:.2f}" for k, v in
                           row["phase_share"].items()))
+            if name == "fused_ir" and phase_fns is not None:
+                row["phase_share"] = fp32_phase_shares(phase_fns, *a_, **kw)
+                print(f"phases fused_ir {row['shape']} -> "
+                      f"{row['out_channels']}: " + ", ".join(
+                          f"{k} {v:.2f}"
+                          for k, v in row["phase_share"].items()))
             if name == "cross_attention" and "device_ms" not in totals[name]:
                 q, k, v = a_
                 q4, k4, v4 = q[:, None], k[:, None], v[:, None]

@@ -100,6 +100,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 8 bytes global -> shared, zeros when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
 // 4 bytes global -> shared, zeros when !valid.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -229,6 +236,89 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// ------------------------------------------------- TF32, three passes
+// fp32 products on the tensor cores at fp32 accuracy: each operand is
+// split into a TF32 high part and a TF32 remainder, v ~ hi + lo to about
+// 2^-22 of v, and a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi in fp32 sums
+// (the lo.lo term, ~2^-22 of the product, is dropped).
+
+// v rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
+// zero, as fp32 bits; cvt leaves the 13 low bits undefined, so they are
+// cleared.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// c += a . b for one 16x8x8 TF32 tile: a (rows g, g+8 x cols t, t+4) in
+// the m16k8 row fragment, b (rows t, t+4 x col g) in the k8n8 col
+// fragment, c in the m16n8 fragment.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element offset of (row r, column c) in the K-major layout of
+// core_offset for 4-byte elements: 8-row x 4-column core matrices of 128
+// contiguous bytes, kcb = K / 4 of them along K per 8 rows.
+__host__ __device__ __forceinline__ int core_offset4(int r, int c, int kcb) {
+  return (((r >> 3) * kcb + (c >> 2)) << 5) + ((r & 7) << 2) + (c & 3);
+}
+
+// d (64 x 16, fp32) += A (64 x 8, TF32 in registers: this warp's 16 rows
+// as an mma.sync m16n8k8 A fragment) . B (8 x 16, TF32 K-major in shared
+// memory).
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 32, fp32) += A (64 x 8, TF32 in registers) . B (8 x 32, TF32
+// K-major in shared memory), as wgmma_m64n16k8_tf32_rs.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The RS TF32 wgmma of N columns (16 or 32).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  if constexpr (N == 32)
+    wgmma_m64n32k8_tf32_rs(d, a, b);
+  else
+    wgmma_m64n16k8_tf32_rs(d, a, b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -37,7 +37,7 @@
 // reads all of k and v. Rows that are not 16-byte aligned (D or C not a
 // multiple of 8) take scalar loads and stores.
 //
-// fp32 (the reference-precision path, not on the serving path): the CUDA
+// fp32 (what `infer` and `serve` run by default, at B=8): the CUDA
 // cores. One block of 256 threads per (image, 16 query rows); K as fp32 in
 // shared memory, one warp per row for scores and softmax, p kept fp32 and
 // transposed, V streamed through shared memory in chunks of 32 rows.

@@ -52,11 +52,50 @@
 //        sums stay in registers across chunks.
 //    The output leaves straight from the projection's fragments, the
 //    residual read from the x tile. Cout <= 128.
-//  - fp32 (the reference-precision path): an 8x8 tile and chunks of 32 on
-//    the CUDA cores, accumulators in shared memory.
+//  - fp32 (what `infer` and `serve` run by default, at B=8): the same
+//    structure on the tensor cores at fp32 accuracy. A TF32 product keeps
+//    ~3 digits, so each 1x1 product is three passes: every operand split
+//    by cvt.rna into a TF32 high part and a TF32 remainder, and
+//    a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in fp32 sums (the lo.lo term,
+//    ~2^-22 of the product, dropped). On the CUDA cores a B=128 forward's
+//    fused IR FLOPs take at least 4.98 ms at 67 TFLOP/s; three TF32 passes
+//    at 495 TFLOP/s at least 2.02. Persistent blocks of 256 threads, one
+//    an SM (up to 255 registers a thread: a version held to 128, for two
+//    blocks an SM, spilled and ran slower), walk (image, tile) pairs; the
+//    host picks the tile per shape, the batch included (make_plan: 8 or
+//    16 columns, the estimated waves over the SMs times a tile's staging
+//    cost), and resident or streamed weights (two slots, the next
+//    chunk's cp.async in flight), as in bf16; streamed chunks are 32
+//    hidden channels, or 16 for Cout 33-64 (an instance of its own), which
+//    leaves the Cin 256 launch a tile twice as large. The x tile (16- or
+//    8-byte cp.async, zero-filled outside the image, Cin padded to the
+//    mma's k of 8) stays unsplit in shared memory, so Cin 256 fits a
+//    tile: a split copy would double it. Per chunk:
+//      w1: staged unsplit, then split in place into high and low core
+//        matrices (once a block when resident, once a chunk streamed);
+//      expand: wgmma m64n32k8 TF32 (m64n16k8 for a 16-channel chunk), A
+//        from registers (x loaded from the tile and split there, four k
+//        steps' fragments in flight as the wgmma groups complete), B the
+//        w1 halves K-major in shared memory; the warpgroups take 64-row
+//        blocks in pairs, an odd last one split by columns; the cross
+//        terms sum apart from hi.hi, so consecutive wgmmas do not all
+//        wait on one accumulator; bias, leaky, zero outside the image,
+//        into the fp32 hidden chunk;
+//      depthwise: fp32 FMA on the CUDA cores, 9 taps in order (~3% of the
+//        block's FLOPs); a warp's m tiles are consecutive output rows, so
+//        each hidden row a thread loads serves up to three of its
+//        outputs; each output is split straight into the A fragment of
+//        mma.sync m16n8k8 TF32;
+//      project: three mma.sync per fragment against w2 split as its B
+//        fragments are loaded; the sums stay in registers across chunks.
+//        Where a tile has fewer m tiles than warps, the warps split
+//        Cout's n tiles between them (each recomputing its m tiles'
+//        depthwise), so none idles.
+//    Cout <= 128, as in bf16.
 
 #include <algorithm>
 #include <array>
+#include <type_traits>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -67,126 +106,6 @@ namespace calipsync {
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-
-// ---------------------------------------------------------------- fp32
-// CUDA-core design: 8x8 output tile, hidden chunks of 32, every product an
-// fp32 FMA from shared memory.
-
-namespace fp32_path {
-constexpr int kTile = 8;                 // output tile side
-constexpr int kHalo = kTile + 2;         // haloed tile side
-constexpr int kNP = kHalo * kHalo;       // haloed pixels
-constexpr int kNO = kTile * kTile;       // output pixels
-constexpr int kChunk = 32;               // hidden channels per pass
-
-size_t smem_bytes(int Cin, int Cout) {
-  return sizeof(float) * (static_cast<size_t>(Cin) * kChunk +
-                          static_cast<size_t>(kChunk) * Cout +
-                          kNP * kChunk + kNO * kChunk +
-                          static_cast<size_t>(kNO) * Cout +
-                          static_cast<size_t>(kNP) * Cin);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-           const float* __restrict__ b1, const float* __restrict__ kd,
-           const float* __restrict__ bd, const float* __restrict__ w2t,
-           const float* __restrict__ b2, float* __restrict__ out, int H,
-           int W, int Cin, int Ch, int Cout, int residual, float slope) {
-  extern __shared__ float smem[];
-  float* w1s = smem;                     // Cin x kChunk
-  float* w2s = w1s + Cin * kChunk;       // kChunk x Cout
-  float* hid = w2s + kChunk * Cout;      // kNP x kChunk
-  float* ys = hid + kNP * kChunk;        // kNO x kChunk
-  float* acc = ys + kNO * kChunk;        // kNO x Cout
-  float* xs = acc + kNO * Cout;          // kNP x Cin
-
-  const int tid = threadIdx.x;
-  const int tiles_w = (W + kTile - 1) / kTile;
-  const int h0 = (blockIdx.x / tiles_w) * kTile;
-  const int w0 = (blockIdx.x % tiles_w) * kTile;
-  const long long b = blockIdx.y;
-
-  for (int i = tid; i < kNP * Cin; i += kThreads) {
-    const int p = i / Cin, c = i % Cin;
-    const int hi = h0 - 1 + p / kHalo, wi = w0 - 1 + p % kHalo;
-    xs[i] = (hi >= 0 && hi < H && wi >= 0 && wi < W)
-                ? x[((b * H + hi) * W + wi) * Cin + c]
-                : 0.f;
-  }
-  for (int i = tid; i < kNO * Cout; i += kThreads) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < Ch; c0 += kChunk) {
-    const int cc = min(kChunk, Ch - c0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < Cin * kChunk; i += kThreads) {
-      const int ci = i / kChunk, j = i % kChunk;
-      w1s[i] = j < cc ? w1t[(c0 + j) * Cin + ci] : 0.f;
-    }
-    for (int i = tid; i < kChunk * Cout; i += kThreads) {
-      const int j = i / Cout, o = i % Cout;
-      w2s[i] = j < cc ? w2t[o * Ch + c0 + j] : 0.f;
-    }
-    __syncthreads();
-
-    // expand 1x1 on the haloed tile; zero outside the image
-    for (int i = tid; i < kNP * kChunk; i += kThreads) {
-      const int p = i / kChunk, j = i % kChunk;
-      const int hi = h0 - 1 + p / kHalo, wi = w0 - 1 + p % kHalo;
-      float h = 0.f;
-      if (j < cc && hi >= 0 && hi < H && wi >= 0 && wi < W) {
-        float s = b1[c0 + j];
-        const float* xp = xs + p * Cin;
-        for (int ci = 0; ci < Cin; ++ci) s += xp[ci] * w1s[ci * kChunk + j];
-        h = leaky(s, slope);
-      }
-      hid[i] = h;
-    }
-    __syncthreads();
-
-    // depthwise 3x3 on the output pixels
-    for (int i = tid; i < kNO * kChunk; i += kThreads) {
-      const int p = i / kChunk, j = i % kChunk;
-      const int oy = p / kTile, ox = p % kTile;
-      float y = 0.f;
-      if (j < cc) {
-        float s = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            s += hid[((oy + dy) * kHalo + ox + dx) * kChunk + j] *
-                 kd[(dy * 3 + dx) * Ch + c0 + j];
-        y = leaky(s + bd[c0 + j], slope);
-      }
-      ys[i] = y;
-    }
-    __syncthreads();
-
-    // project 1x1, accumulated over the chunks; each thread keeps the
-    // same accumulator entries in every chunk and in the epilogue
-    for (int i = tid; i < kNO * Cout; i += kThreads) {
-      const int p = i / Cout, o = i % Cout;
-      float s = acc[i];
-      const float* yp = ys + p * kChunk;
-      for (int j = 0; j < cc; ++j) s += yp[j] * w2s[j * Cout + o];
-      acc[i] = s;
-    }
-  }
-
-  for (int i = tid; i < kNO * Cout; i += kThreads) {
-    const int p = i / Cout, o = i % Cout;
-    const int oy = p / kTile, ox = p % kTile;
-    const int hi = h0 + oy, wi = w0 + ox;
-    if (hi >= H || wi >= W) continue;
-    float v = leaky(acc[i] + b2[o], slope);
-    if (residual) v += xs[((oy + 1) * kHalo + ox + 1) * Cin + o];
-    out[((b * H + hi) * W + wi) * Cout + o] = v;
-  }
-}
-}  // namespace fp32_path
 
 // ---------------------------------------------------------------- bf16
 // Tensor-core design (see the header): persistent blocks, resident or
@@ -777,6 +696,641 @@ Plan make_plan(int H, int W, int Cin, int Ch, int Cout) {
 }
 }  // namespace bf16_path
 
+// ---------------------------------------------------------------- fp32
+// Tensor-core design at fp32 accuracy (see the header): persistent
+// blocks, resident or streamed weights, hidden chunks of KC channels,
+// both 1x1 products in three TF32 passes, the depthwise on the CUDA cores.
+
+namespace fp32_path {
+constexpr int kABuf = 4;         // k steps in flight in the expand
+#ifdef CALIPSYNC_FP32_STAMPS
+__device__ unsigned long long g_stamps[8];
+#endif
+constexpr int kKC = 32;          // hidden channels per chunk, at most
+constexpr int kLH = kKC + 4;     // row stride of the hidden chunk (floats)
+constexpr int kBlock = 256;      // threads: two warpgroups
+constexpr int kWarps = kBlock / 32;
+constexpr int kMaxSmem = 232448;     // one block's limit on the H100
+// Output m tiles (16 pixels) whose projection sums a warp keeps in
+// registers: 64 sums a thread for every Cout.
+template <int NT> __host__ __device__ constexpr int mpw() { return 16 / NT; }
+// Streamed chunks of 16 hidden channels, an instance of its own
+// (kernel<8, 16>), are compiled for Cout 33-64 only: the one width whose
+// streamed weights crowd the tile (Cin 256 at 40x40).
+template <int NT> __host__ __device__ constexpr bool takes_kc16() {
+  return NT == 8;
+}
+
+__host__ __device__ inline int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// How a launch tiles its work; chosen on the host (make_plan), read by
+// the kernel.
+struct Plan {
+  int th, tw;       // output tile, rows x cols (th even, tw 8 or 16)
+  int np;           // haloed pixels, (th + 2) x (tw + 2)
+  int mp;           // np rounded up to 64 (the expand's row blocks)
+  int cinp;         // Cin rounded up to 8 (the TF32 mma's k)
+  int lx;           // row stride of the x tile, cinp + 4 (floats)
+  int kc;           // hidden channels per chunk: 32, or 16 where streamed
+                    // weights leave a larger tile room (takes_kc16)
+  int chp;          // Ch rounded up to kc
+  int resident;     // 1: all weights staged once a block; 0: a chunk at a
+                    // time, two slots, the next chunk in flight
+  int rows1;        // hidden channels a weight slot holds (chp or kc)
+  int nsplit;       // n-tile groups the projection's warps split Cout into
+  int slot_bytes;   // bytes of one weight slot
+  int smem;         // dynamic shared memory, bytes
+};
+
+// One weight slot: w1 split into TF32 high and low parts (rows1 hidden
+// channels x cinp, core matrices of core_offset4), w2 rows (out channel,
+// 8 NT of them) x (rows1 + 4), the taps (9 x rows1), b1 and bd; fp32.
+struct Slot {
+  float* w1h;
+  float* w1l;
+  float* w2;
+  float* kd;
+  float* b1;
+  float* bd;
+};
+
+template <int NT>
+__host__ __device__ inline int slot_bytes(int rows1, int cinp) {
+  return 4 * (2 * rows1 * cinp + 8 * NT * (rows1 + 4) + 11 * rows1);
+}
+
+template <int NT>
+__device__ __forceinline__ Slot slot_at(unsigned char* base, const Plan& p) {
+  Slot s;
+  s.w1h = reinterpret_cast<float*>(base);
+  s.w1l = s.w1h + p.rows1 * p.cinp;
+  s.w2 = s.w1l + p.rows1 * p.cinp;
+  s.kd = s.w2 + 8 * NT * (p.rows1 + 4);
+  s.b1 = s.kd + 9 * p.rows1;
+  s.bd = s.b1 + p.rows1;
+  return s;
+}
+
+// Which of the optional vector paths a launch's pointers and widths
+// allow: x in 16-byte (Cin % 4 == 0) or 8-byte (the stem's Cin of 6)
+// pieces, the weights in 16-byte pieces.
+struct VecPaths {
+  bool x16, x8, w1, w2, kd, bias;
+};
+
+// Hidden channels j0 .. j0 + rows1 of the weights into a slot, zero past
+// Ch, Cin and Cout; 16-byte cp.async where rows allow, else scalar loads.
+// w1 lands unsplit in w1h; split_w1 splits it in place.
+template <int NT>
+__device__ void stage_weights(const Slot& s, const Plan& p, int j0,
+                              const float* __restrict__ w1t,
+                              const float* __restrict__ b1,
+                              const float* __restrict__ kd,
+                              const float* __restrict__ bd,
+                              const float* __restrict__ w2t, int Cin, int Ch,
+                              int Cout, const VecPaths& vp) {
+  const int tid = threadIdx.x, rows1 = p.rows1, lw2 = rows1 + 4;
+  const int g1 = p.cinp / 4, kcb = p.cinp / 4;
+  for (int i = tid; i < rows1 * g1; i += kBlock) {
+    const int r = i / g1, c = (i % g1) * 4;
+    const float* src = w1t + static_cast<long long>(j0 + r) * Cin + c;
+    float* dst = s.w1h + core_offset4(r, c, kcb);
+    if (vp.w1) {
+      const bool ok = j0 + r < Ch && c < Cin;
+      cp_async16(dst, ok ? src : w1t, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[e] = j0 + r < Ch && c + e < Cin ? src[e] : 0.f;
+    }
+  }
+  const int g2 = rows1 / 4;
+  for (int i = tid; i < 8 * NT * g2; i += kBlock) {
+    const int o = i / g2, c = (i % g2) * 4;
+    const float* src = w2t + static_cast<long long>(o) * Ch + j0 + c;
+    float* dst = s.w2 + o * lw2 + c;
+    if (vp.w2) {
+      const bool ok = o < Cout && j0 + c < Ch;
+      cp_async16(dst, ok ? src : w2t, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[e] = o < Cout && j0 + c + e < Ch ? src[e] : 0.f;
+    }
+  }
+  if (vp.kd) {
+    for (int i = tid; i < 9 * g2; i += kBlock) {
+      const int tap = i / g2, j = (i % g2) * 4;
+      const bool ok = j0 + j < Ch;
+      cp_async16(s.kd + tap * rows1 + j, ok ? kd + tap * Ch + j0 + j : kd,
+                 ok);
+    }
+  } else {
+    for (int i = tid; i < 9 * rows1; i += kBlock) {
+      const int tap = i / rows1, j = j0 + i % rows1;
+      s.kd[i] = j < Ch ? kd[tap * Ch + j] : 0.f;
+    }
+  }
+  if (vp.bias) {
+    for (int r = 4 * tid; r < rows1; r += 4 * kBlock) {
+      const bool ok = j0 + r < Ch;
+      cp_async16(s.b1 + r, ok ? b1 + j0 + r : b1, ok);
+      cp_async16(s.bd + r, ok ? bd + j0 + r : bd, ok);
+    }
+  } else {
+    for (int r = tid; r < rows1; r += kBlock) {
+      s.b1[r] = j0 + r < Ch ? b1[j0 + r] : 0.f;
+      s.bd[r] = j0 + r < Ch ? bd[j0 + r] : 0.f;
+    }
+  }
+}
+
+// The slot's w1, staged unsplit in w1h, split into its TF32 high part
+// (in place) and remainder (w1l), once per staging.
+__device__ void split_w1(const Slot& s, const Plan& p) {
+  const int n = p.rows1 * p.cinp;
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * kBlock) {
+    const float4 v = *reinterpret_cast<const float4*>(s.w1h + i);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(s.w1h + i) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(s.w1l + i) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The haloed x tile at output origin (h0, w0), unsplit: np rows of Cin
+// channels padded to cinp, row stride lx; zero outside the image and past
+// Cin (the expand reads the pad rows up to mp as zeros in registers).
+__device__ void stage_x(float* xs, const Plan& p, const float* __restrict__ x,
+                        long long b, int h0, int w0, int H, int W, int Cin,
+                        const VecPaths& vp) {
+  const int tid = threadIdx.x, hw = p.tw + 2, np = p.np, lx = p.lx;
+  const int piece = vp.x16 ? 4 : vp.x8 ? 2 : 1;
+  const int groups = p.cinp / piece;
+  for (int i = tid; i < np * groups; i += kBlock) {
+    const int pix = i / groups, c = (i % groups) * piece;
+    const int hi = h0 - 1 + pix / hw, wi = w0 - 1 + pix % hw;
+    const bool ok = hi >= 0 && hi < H && wi >= 0 && wi < W && c < Cin;
+    const float* src = ok ? x + ((b * H + hi) * W + wi) * Cin + c : x;
+    if (piece == 4)
+      cp_async16(xs + pix * lx + c, src, ok);
+    else if (piece == 2)
+      cp_async8(xs + pix * lx + c, src, ok);
+    else
+      xs[pix * lx + c] = ok ? *src : 0.f;
+  }
+}
+
+// NT n tiles of 8 output channels (Cout <= 8 NT). Per chunk of KC hidden
+// channels: the expand on the tensor cores (warpgroup wg computes the
+// chunk's columns 16 wg .. 16 wg + 15 for every 64-row block of the
+// haloed tile), then each warp's depthwise outputs, split, as the A
+// fragments of the projection's mma.sync.
+template <int NT, int KC>
+__global__ void __launch_bounds__(kBlock, 1)
+    kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+           const float* __restrict__ b1, const float* __restrict__ kd,
+           const float* __restrict__ bd, const float* __restrict__ w2t,
+           const float* __restrict__ b2, float* __restrict__ out, int B,
+           int H, int W, int Cin, int Ch, int Cout, int residual,
+           float slope, const Plan p) {
+  constexpr int MPW = mpw<NT>();
+#ifdef CALIPSYNC_FP32_STAMPS
+  // warp 0's clock64() cycles by phase: 0 chunk wait + barrier, 1 fence
+  // and barrier after the split, 2 expand, 3 depthwise + project, 4
+  // epilogue and x staging, 5 the barrier after the expand, 6 the next
+  // chunk's weight copies issued, 7 the split
+  unsigned long long t_last = clock64(), t_ph[8] = {};
+#define STAMP(ph)                                      \
+  do {                                                 \
+    if (threadIdx.x == 0) {                            \
+      const unsigned long long now = clock64();        \
+      t_ph[ph] += now - t_last;                        \
+      t_last = now;                                    \
+    }                                                  \
+  } while (0)
+#else
+#define STAMP(ph) \
+  do {            \
+  } while (0)
+#endif
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);  // np x lx
+  float* hs = xs + p.np * p.lx;                    // np x kLH
+  unsigned char* wbase = reinterpret_cast<unsigned char*>(hs + p.np * kLH);
+  float* b2s = reinterpret_cast<float*>(wbase + (p.resident ? 1 : 2) *
+                                                    p.slot_bytes);
+
+  // warp broadcast from lane 0, so that the compiler sees it uniform
+  // across the warp (see the bf16 kernel)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, warp in it
+  const int th = p.th, tw = p.tw, hw = tw + 2, np = p.np, lx = p.lx;
+  const int lw2 = p.rows1 + 4, kcb = p.cinp / 4, nks = p.cinp / 8;
+  const int tiles_w = (W + tw - 1) / tw, tiles_h = (H + th - 1) / th;
+  const int per_img = tiles_w * tiles_h;
+  const long long total = static_cast<long long>(B) * per_img;
+  const int nchunks = p.chp / KC;
+  const int nom = th * tw / 16;  // output m tiles: 16 pixels in tile order
+  // the projection's split: nsplit groups of NT / nsplit n tiles, G warps
+  // a group; warp w takes n tiles n0 .. n0 + ntl of m tiles wm, wm + G, ..
+  const int G = kWarps / p.nsplit, ntl = NT / p.nsplit;
+  const int wm = warp % G, n0 = (warp / G) * ntl;
+  // this warp's m tiles: nmt consecutive ones from mt0, so that its
+  // output rows are consecutive and the depthwise reuses each hidden row
+  // it loads for up to three of them
+  const int per = (nom + G - 1) / G;
+  const int mt0 = wm * per, nmt = max(0, min(per, nom - mt0));
+  auto a16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  VecPaths vp;
+  vp.x16 = Cin % 4 == 0 && a16(x);
+  vp.x8 = !vp.x16 && Cin % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  vp.w1 = Cin % 4 == 0 && a16(w1t);
+  vp.w2 = Ch % 4 == 0 && a16(w2t);
+  vp.kd = Ch % 4 == 0 && a16(kd);
+  vp.bias = Ch % 4 == 0 && a16(b1) && a16(bd);
+  const bool out2 = Cout % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+
+  for (int o = tid; o < 8 * NT; o += kBlock) b2s[o] = o < Cout ? b2[o] : 0.f;
+  const Slot slot0 = slot_at<NT>(wbase, p);
+  if (p.resident) {
+    stage_weights<NT>(slot0, p, 0, w1t, b1, kd, bd, w2t, Cin, Ch, Cout, vp);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    split_w1(slot0, p);  // visible to wgmma after a chunk's fence + barrier
+  }
+
+  for (long long tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const long long b = tile / per_img;
+    const int tr = static_cast<int>(tile % per_img);
+    const int h0 = (tr / tiles_w) * th, w0 = (tr % tiles_w) * tw;
+    // the haloed tile lies inside the image: no per-pixel edge test
+    const bool interior = h0 >= 1 && w0 >= 1 && h0 + th + 1 <= H &&
+                          w0 + tw + 1 <= W;
+    STAMP(4);
+    __syncthreads();  // the previous tile's readers of xs, hs, slots done
+    stage_x(xs, p, x, b, h0, w0, H, W, Cin, vp);
+    if (!p.resident)
+      stage_weights<NT>(slot0, p, 0, w1t, b1, kd, bd, w2t, Cin, Ch, Cout, vp);
+    cp_async_commit();
+
+    float acc[MPW][NT][4];
+#pragma unroll
+    for (int i = 0; i < MPW; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][n][e] = n < ntl ? b2s[(n0 + n) * 8 + 2 * t + (e & 1)] : 0.f;
+
+    for (int c = 0; c < nchunks; ++c) {
+      STAMP(c == 0 ? 4 : 3);
+      cp_async_wait<0>();
+      __syncthreads();  // x and chunk c's weights in; hs free
+      STAMP(0);
+      if (!p.resident && c + 1 < nchunks) {
+        stage_weights<NT>(slot_at<NT>(wbase + ((c + 1) & 1) * p.slot_bytes,
+                                      p),
+                          p, (c + 1) * KC, w1t, b1, kd, bd, w2t, Cin, Ch,
+                          Cout, vp);
+        cp_async_commit();
+      }
+      STAMP(6);
+      const Slot w =
+          slot_at<NT>(wbase + (p.resident ? 0 : (c & 1) * p.slot_bytes), p);
+      const int jw = p.resident ? c * KC : 0;  // chunk's row in the slot
+      const int kc = min(KC, Ch - c * KC);     // channels of the chunk
+      if (!p.resident) split_w1(w, p);
+      STAMP(7);
+      fence_proxy_async();  // the split w1 -> wgmma's reads
+      __syncthreads();
+      STAMP(1);
+
+      // expand 1x1 on the haloed tile, A from registers (x split there),
+      // B (w1 high and low) from shared memory; bias, leaky, zero outside
+      // the image, into hs. One call: columns col0 .. col0 + N - 1 of the
+      // chunk for 64-row block mb; the cross terms (lo.hi + hi.lo) sum
+      // apart from hi.hi, so consecutive wgmmas do not all wait on one
+      // accumulator.
+      auto expand = [&](auto ncols, int mb, int col0) {
+        constexpr int N = decltype(ncols)::value;
+        const int jc = jw + col0;  // the first w1 row
+        float dh[N / 2], dl[N / 2];
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dh[4 * n + e] = w.b1[jc + n * 8 + 2 * t + (e & 1)];
+            dl[4 * n + e] = 0.f;
+          }
+        // rows r0 and r0 + 8 of the tile (zero past np), columns t and
+        // t + 4 of a k step
+        const int r0 = 64 * mb + 16 * wq + g;
+        const bool ok0 = r0 < np, ok1 = r0 + 8 < np;
+        const float* xa = xs + r0 * lx + t;
+        // kABuf k steps' A fragments in flight: a step's registers are
+        // refilled once its wgmma group has completed
+        uint32_t ah[kABuf][4], al[kABuf][4];
+        fence_operands(dh);
+        fence_operands(dl);
+        for (int s0 = 0; s0 < nks; s0 += kABuf) {
+#pragma unroll
+          for (int j = 0; j < kABuf; ++j) {
+            const int s = s0 + j;
+            if (s >= nks) break;
+            if (s >= kABuf) wgmma_wait<kABuf - 1>();
+            split_tf32(ok0 ? xa[8 * s] : 0.f, ah[j][0], al[j][0]);
+            split_tf32(ok1 ? xa[8 * lx + 8 * s] : 0.f, ah[j][1], al[j][1]);
+            split_tf32(ok0 ? xa[8 * s + 4] : 0.f, ah[j][2], al[j][2]);
+            split_tf32(ok1 ? xa[8 * lx + 8 * s + 4] : 0.f, ah[j][3],
+                       al[j][3]);
+            const int off = core_offset4(jc, 8 * s, kcb);
+            const uint64_t bh = wgmma_desc(w.w1h + off, 128, 128 * kcb);
+            const uint64_t bl = wgmma_desc(w.w1l + off, 128, 128 * kcb);
+            wgmma_fence();
+            wgmma_tf32_rs<N>(dl, al[j], bh);
+            wgmma_tf32_rs<N>(dh, ah[j], bh);
+            wgmma_tf32_rs<N>(dl, ah[j], bl);
+            wgmma_commit();
+          }
+        }
+        wgmma_wait<0>();
+        fence_operands(dh);
+        fence_operands(dl);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int pix = r0 + 8 * half;
+          if (pix >= np) continue;  // pad rows
+          bool inside = true;
+          if (!interior) {
+            const int hi = h0 - 1 + pix / hw, wi = w0 - 1 + pix % hw;
+            inside = hi >= 0 && hi < H && wi >= 0 && wi < W;
+          }
+#pragma unroll
+          for (int n = 0; n < N / 8; ++n) {
+            const int e = 4 * n + 2 * half;
+            const float v0 = leaky(dh[e] + dl[e], slope);
+            const float v1 = leaky(dh[e + 1] + dl[e + 1], slope);
+            *reinterpret_cast<float2*>(hs + pix * kLH + col0 + n * 8 +
+                                       2 * t) =
+                inside ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+          }
+        }
+      };
+      {
+        const int nmb = p.mp / 64;
+        // pairs of row blocks, one a warpgroup, all the chunk's columns;
+        // an odd last block of a 32-channel chunk split by columns between
+        // the warpgroups
+        if constexpr (KC == 32) {
+          for (int mb = 0; mb + 1 < nmb; mb += 2)
+            expand(std::integral_constant<int, 32>(), mb + wg, 0);
+          if (nmb & 1)
+            expand(std::integral_constant<int, 16>(), nmb - 1, 16 * wg);
+        } else {  // chunks of 16: an odd last block on warpgroup 0
+          for (int mb = 0; mb + 1 < nmb; mb += 2)
+            expand(std::integral_constant<int, 16>(), mb + wg, 0);
+          if ((nmb & 1) && wg == 0)
+            expand(std::integral_constant<int, 16>(), nmb - 1, 0);
+        }
+      }
+      STAMP(2);
+      __syncthreads();  // the hidden chunk is in hs
+      STAMP(5);
+
+      // depthwise 3x3 + bias + leaky on the CUDA cores (fp32 FMA, taps in
+      // order), each output split into the A fragment of the projection's
+      // mma.sync (rows g, g + 8 = pixels, columns t, t + 4 = channels of a
+      // k step); the projection's sums stay in registers across chunks.
+      // A thread's outputs lie in vertical strips (16-wide tiles: columns
+      // g and g + 8, one row an m tile; 8-wide: column g, two rows an m
+      // tile), so each hidden row it loads serves every output of its
+      // strip within reach.
+      for (int ks = 0; ks < kKC / 8; ++ks) {
+        if (8 * ks >= kc || nmt == 0) break;
+        const int c0 = 8 * ks + t;  // the chunk's channels c0 and c0 + 4
+        float k0[9], k1[9];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          k0[tap] = w.kd[tap * p.rows1 + jw + c0];
+          k1[tap] = w.kd[tap * p.rows1 + jw + c0 + 4];
+        }
+        // sums of output j (strip order) of strip half, channels c0, c0 + 4
+        float acc0[2][2 * MPW], acc1[2][2 * MPW];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2 * MPW; ++j) acc0[h][j] = acc1[h][j] = 0.f;
+        // one hidden row (hr, hidden row r of the strip) into the outputs
+        // j of strip h whose window holds it
+        auto taps = [&](int h, int r, int hr, int col, int nout) {
+          const float* hp = hs + (hr * hw + col) * kLH + c0;
+          float v0[3], v1[3];
+#pragma unroll
+          for (int dc = 0; dc < 3; ++dc) {
+            v0[dc] = hp[dc * kLH];
+            v1[dc] = hp[dc * kLH + 4];
+          }
+#pragma unroll
+          for (int j = 0; j < 2 * MPW; ++j) {
+            const int dy = r - j;
+            if (j >= nout || dy < 0 || dy > 2) continue;
+#pragma unroll
+            for (int dc = 0; dc < 3; ++dc) {
+              acc0[h][j] = fmaf(v0[dc], k0[dy * 3 + dc], acc0[h][j]);
+              acc1[h][j] = fmaf(v1[dc], k1[dy * 3 + dc], acc1[h][j]);
+            }
+          }
+        };
+        if (tw == 16) {  // strips at columns g, g + 8: rows mt0 ..
+#pragma unroll
+          for (int r = 0; r < MPW + 2; ++r) {
+            if (r >= nmt + 2) break;
+            taps(0, r, mt0 + r, g, nmt);
+            taps(1, r, mt0 + r, g + 8, nmt);
+          }
+        } else {  // one strip at column g: rows 2 mt0 ..
+#pragma unroll
+          for (int r = 0; r < 2 * MPW + 2; ++r) {
+            if (r >= 2 * nmt + 2) break;
+            taps(0, r, 2 * mt0 + r, g, 2 * nmt);
+          }
+        }
+        uint32_t yh[MPW][4], yl[MPW][4];
+        const float bd0 = w.bd[jw + c0], bd1 = w.bd[jw + c0 + 4];
+#pragma unroll
+        for (int i = 0; i < MPW; ++i) {
+          if (i >= nmt) break;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            // m tile i, row g (+ 8 for half 1): output i of strip half
+            // (16 wide) or output 2 i + half of the one strip (8 wide)
+            const bool w16 = tw == 16;
+            split_tf32(leaky((w16 ? acc0[half][i] : acc0[0][2 * i + half]) +
+                                 bd0, slope),
+                       yh[i][half], yl[i][half]);
+            split_tf32(leaky((w16 ? acc1[half][i] : acc1[0][2 * i + half]) +
+                                 bd1, slope),
+                       yh[i][2 + half], yl[i][2 + half]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n >= ntl) break;
+          // B fragment: w2[c0 (+4)][out (n0 + n) * 8 + g], split
+          const float* wp = w.w2 + ((n0 + n) * 8 + g) * lw2 + jw + c0;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(wp[0], bh0, bl0);
+          split_tf32(wp[4], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < MPW; ++i) {
+            if (i >= nmt) break;
+            mma_tf32(acc[i][n], yl[i], bh0, bh1);
+            mma_tf32(acc[i][n], yh[i], bl0, bl1);
+            mma_tf32(acc[i][n], yh[i], bh0, bh1);
+          }
+        }
+      }
+    }
+
+    STAMP(3);
+    // epilogue: bias (the sums' start), leaky [+ x], stored straight from
+    // the fragments; the residual read from the x tile
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i >= nmt) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = (mt0 + i) * 16 + g + 8 * half;
+        const int hi = h0 + q / tw, wi = w0 + q % tw;
+        if (hi >= H || wi >= W) continue;
+        const float* xr = xs + ((q / tw + 1) * hw + q % tw + 1) * lx;
+        float* op = out + ((b * H + hi) * W + wi) * Cout;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int o = (n0 + n) * 8 + 2 * t;
+          if (n >= ntl || o >= Cout) break;
+          float v0 = leaky(acc[i][n][2 * half], slope);
+          float v1 = leaky(acc[i][n][2 * half + 1], slope);
+          if (residual) {  // column o + 1 <= Cout < lx: a pad column at most
+            v0 += xr[o];
+            v1 += xr[o + 1];
+          }
+          if (out2) {
+            *reinterpret_cast<float2*>(op + o) = make_float2(v0, v1);
+          } else {
+            op[o] = v0;
+            if (o + 1 < Cout) op[o + 1] = v1;
+          }
+        }
+      }
+    }
+  }
+  STAMP(4);
+#ifdef CALIPSYNC_FP32_STAMPS
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 8; ++i) atomicAdd(g_stamps + i, t_ph[i]);
+#endif
+#undef STAMP
+}
+
+// Shared memory of a plan with tile (th, tw) and the residency given;
+// fills the derived fields.
+template <int NT>
+void size_plan(Plan& p, int Cin, int Ch) {
+  p.np = (p.th + 2) * (p.tw + 2);
+  p.mp = round_up(p.np, 64);
+  p.cinp = round_up(Cin, 8);
+  p.lx = p.cinp + 4;
+  p.chp = round_up(Ch, p.kc);
+  p.rows1 = p.resident ? p.chp : p.kc;
+  p.slot_bytes = slot_bytes<NT>(p.rows1, p.cinp);
+  const long long smem = 4LL * p.np * (p.lx + kLH) +
+                         static_cast<long long>(p.resident ? 1 : 2) *
+                             p.slot_bytes +
+                         4 * 8 * NT;
+  p.smem = smem > kMaxSmem ? kMaxSmem + 1 : static_cast<int>(smem);
+}
+
+// A tile's fixed cost (barriers, the exposed x load), counted as this many
+// haloed rows in make_plan's estimate.
+constexpr int kTileCostRows = 160;
+// A chunk's fixed cost (its barriers and copies issued), in haloed rows.
+constexpr int kChunkCostRows = 32;
+
+// The projection's split for nom m tiles: the n-tile groups (1, 2, 4 or
+// 8, dividing NT) that give the warp with the most work the least, a
+// depthwise m tile counted as 4 n tiles of projection; a warp holds at
+// most mpw<NT>() m tiles.
+template <int NT>
+int pick_nsplit(int nom) {
+  int best = 0, best_cost = 0;
+  for (int ns = 1; ns <= kWarps && ns <= NT; ns *= 2) {
+    const int per_warp = (nom + kWarps / ns - 1) / (kWarps / ns);
+    if (per_warp > mpw<NT>()) continue;
+    const int cost = per_warp * (4 + NT / ns);
+    if (best == 0 || cost < best_cost) {
+      best = ns;
+      best_cost = cost;
+    }
+  }
+  return best;  // 0 when the tile has more m tiles than the warps hold
+}
+
+// The tiling with the least estimated time: over tile widths 8 and 16
+// and even heights, resident weights or streamed ones in chunks of 32 or
+// (takes_kc16) 16, the waves of tiles over the SMs times a tile's cost in
+// haloed rows: the rows of x, the streamed weights' bytes as that many
+// rows, kChunkCostRows a chunk, and kTileCostRows; B images of H x W, one
+// block an SM.
+template <int NT>
+Plan make_plan(int B, int H, int W, int Cin, int Ch, int sms) {
+  Plan best{};
+  double best_time = -1.0;
+  for (int tw = W > 8 ? 16 : 8; tw >= 8; tw -= 8) {
+    for (int th = 2; th <= round_up(H, 2) && th * tw <= 16 * kWarps * mpw<NT>();
+         th += 2) {
+      // resident; streamed in chunks of 32; streamed in chunks of 16
+      for (int mode = 0; mode < (takes_kc16<NT>() ? 3 : 2); ++mode) {
+        Plan p{};
+        p.th = th;
+        p.tw = tw;
+        p.resident = mode == 0;
+        p.kc = mode == 2 ? 16 : kKC;
+        size_plan<NT>(p, Cin, Ch);
+        p.nsplit = pick_nsplit<NT>(th * tw / 16);
+        if (p.smem > kMaxSmem || p.nsplit == 0) continue;
+        const int nchunks = p.chp / p.kc;
+        const double w_rows =
+            p.resident ? 0.0
+                       : double(nchunks) * p.slot_bytes / (4.0 * p.lx);
+        const long long tiles = static_cast<long long>(B) *
+                                ((H + th - 1) / th) * ((W + tw - 1) / tw);
+        const double waves = double((tiles + sms - 1) / sms);
+        const double time = waves * (p.mp + w_rows +
+                                     nchunks * kChunkCostRows +
+                                     kTileCostRows);
+        if (best_time < 0 || time < best_time) {
+          best_time = time;
+          best = p;
+        }
+      }
+    }
+  }
+  return best;  // smem 0 when nothing fits
+}
+}  // namespace fp32_path
+
 // n tiles the bf16 kernel instance uses for Cout; 0 when Cout > 128.
 int pick_nt(int Cout) {
   return Cout <= 32 ? 4 : Cout <= 64 ? 8 : Cout <= 128 ? 16 : 0;
@@ -857,54 +1411,112 @@ int launch_bf16(const void* x, const void* w1t, const void* b1,
   return launch_status();
 }
 
+// make_plan's result for the fp32 kernel, remembered per shape (the batch
+// included: it sets how many waves of tiles fill the SMs).
+fp32_path::Plan plan_fp32(int B, int H, int W, int Cin, int Ch, int Cout) {
+  using namespace fp32_path;
+  static std::mutex mu;
+  static std::map<std::array<int, 6>, Plan> plans;
+  const std::array<int, 6> key{B, H, W, Cin, Ch, Cout};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = plans.find(key);
+  if (it != plans.end()) return it->second;
+  const int sms = std::max(sm_count(), 1);
+  Plan p{};
+  switch (pick_nt(Cout)) {
+    case 4: p = make_plan<4>(B, H, W, Cin, Ch, sms); break;
+    case 8: p = make_plan<8>(B, H, W, Cin, Ch, sms); break;
+    case 16: p = make_plan<16>(B, H, W, Cin, Ch, sms); break;
+  }
+  plans.emplace(key, p);
+  return p;
+}
+
+template <int NT, int KC>
+int launch_fp32_kc(const fp32_path::Plan& p, const void* x, const void* w1t,
+                   const void* b1, const void* kd, const void* bd,
+                   const void* w2t, const void* b2, void* out, int B, int H,
+                   int W, int Cin, int Ch, int Cout, int residual,
+                   float slope, cudaStream_t stream) {
+  using namespace fp32_path;
+  const void* fn = reinterpret_cast<const void*>(&kernel<NT, KC>);
+  cudaError_t e = allow_smem(fn, p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock,
+                                                    p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = static_cast<long long>(B) *
+                          ((H + p.th - 1) / p.th) * ((W + p.tw - 1) / p.tw);
+  const long long slots =
+      static_cast<long long>(std::max(per_sm, 1)) * std::max(sm_count(), 1);
+  const int grid = static_cast<int>(std::min(tiles, slots));
+  kernel<NT, KC><<<grid, kBlock, p.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1t),
+      static_cast<const float*>(b1), static_cast<const float*>(kd),
+      static_cast<const float*>(bd), static_cast<const float*>(w2t),
+      static_cast<const float*>(b2), static_cast<float*>(out), B, H, W, Cin,
+      Ch, Cout, residual, slope, p);
+  return launch_status();
+}
+
+template <int NT>
 int launch_fp32(const void* x, const void* w1t, const void* b1,
                 const void* kd, const void* bd, const void* w2t,
                 const void* b2, void* out, int B, int H, int W, int Cin,
                 int Ch, int Cout, int residual, float slope,
                 cudaStream_t stream) {
   using namespace fp32_path;
-  const size_t smem = smem_bytes(Cin, Cout);
-  const cudaError_t e =
-      allow_smem(reinterpret_cast<const void*>(&kernel), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile), B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1t),
-      static_cast<const float*>(b1), static_cast<const float*>(kd),
-      static_cast<const float*>(bd), static_cast<const float*>(w2t),
-      static_cast<const float*>(b2), static_cast<float*>(out), H, W, Cin, Ch,
-      Cout, residual, slope);
-  return launch_status();
+  const Plan p = plan_fp32(B, H, W, Cin, Ch, Cout);
+  if (p.smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (takes_kc16<NT>()) {
+    if (p.kc == 16)
+      return launch_fp32_kc<NT, 16>(p, x, w1t, b1, kd, bd, w2t, b2, out, B,
+                                    H, W, Cin, Ch, Cout, residual, slope,
+                                    stream);
+  }
+  return launch_fp32_kc<NT, kKC>(p, x, w1t, b1, kd, bd, w2t, b2, out, B, H,
+                                 W, Cin, Ch, Cout, residual, slope, stream);
 }
 
 }  // namespace
 }  // namespace calipsync
 
 // Bytes of dynamic shared memory the kernel asks for at these sizes; -1
-// when the bf16 kernel does not take this Cout (> 128), -2 when no tiling
-// of it fits in a block's shared memory.
-extern "C" long long calipsync_fused_ir_smem(int H, int W, int Cin, int Ch,
-                                             int Cout, int dtype) {
+// when the kernel does not take this Cout (> 128), -2 when no tiling of it
+// fits in a block's shared memory.
+extern "C" long long calipsync_fused_ir_smem(int B, int H, int W, int Cin,
+                                             int Ch, int Cout, int dtype) {
   using namespace calipsync;
-  if (dtype != kBFloat16)
-    return static_cast<long long>(fp32_path::smem_bytes(Cin, Cout));
   if (pick_nt(Cout) == 0) return -1;
-  const bf16_path::Plan p = plan_bf16(H, W, Cin, Ch, Cout);
-  return p.smem == 0 ? -2 : p.smem;
+  const int smem = dtype == kFloat32 ? plan_fp32(B, H, W, Cin, Ch, Cout).smem
+                                     : plan_bf16(H, W, Cin, Ch, Cout).smem;
+  return smem == 0 ? -2 : smem;
 }
 
-// The bf16 tiling of a launch, for reports: fills out[0..6] with the tile
-// rows and columns, haloed rows, resident weights (0/1), shared memory
-// bytes and blocks an SM holds by it, and Cout's n tiles. Returns -1 when
-// no tiling fits.
-extern "C" int calipsync_fused_ir_plan(int H, int W, int Cin, int Ch,
-                                       int Cout, int* out) {
+// The tiling of a launch in `dtype`, for reports: fills out[0..8] with the
+// tile rows and columns, haloed rows (rounded up to the expand's 64-row
+// blocks), resident weights (0/1), shared memory bytes and blocks an SM
+// holds by it, Cout's n tiles, and, for fp32 (1 and 32 in bf16), the
+// n-tile groups the projection's warps split them into and the hidden
+// channels a chunk. Returns -1 when no tiling fits.
+extern "C" int calipsync_fused_ir_plan(int B, int H, int W, int Cin, int Ch,
+                                       int Cout, int dtype, int* out) {
   using namespace calipsync;
-  const bf16_path::Plan p = plan_bf16(H, W, Cin, Ch, Cout);
-  if (p.smem == 0) return -1;
-  const int v[7] = {p.th, p.tw, p.mp, p.resident, p.smem, p.occupancy,
-                    pick_nt(Cout)};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  if (pick_nt(Cout) == 0) return -1;
+  if (dtype == kFloat32) {
+    const fp32_path::Plan p = plan_fp32(B, H, W, Cin, Ch, Cout);
+    if (p.smem == 0) return -1;
+    const int v[9] = {p.th, p.tw, p.mp, p.resident, p.smem, 1,
+                      pick_nt(Cout), p.nsplit, p.kc};
+    std::copy(v, v + 9, out);
+  } else {
+    const bf16_path::Plan p = plan_bf16(H, W, Cin, Ch, Cout);
+    if (p.smem == 0) return -1;
+    const int v[9] = {p.th, p.tw, p.mp, p.resident, p.smem, p.occupancy,
+                      pick_nt(Cout), 1, bf16_path::kKC};
+    std::copy(v, v + 9, out);
+  }
   return 0;
 }
 
@@ -920,9 +1532,19 @@ extern "C" int calipsync_fused_ir(const void* x, const void* w1t,
                                   int residual, float slope, void* stream) {
   using namespace calipsync;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch_fp32(x, w1t, b1, kd, bd, w2t, b2, out, B, H, W, Cin, Ch, Cout,
-                       residual, slope, s);
+  if (dtype == kFloat32) {
+    switch (pick_nt(Cout)) {
+      case 4:
+        return launch_fp32<4>(x, w1t, b1, kd, bd, w2t, b2, out, B, H, W, Cin,
+                              Ch, Cout, residual, slope, s);
+      case 8:
+        return launch_fp32<8>(x, w1t, b1, kd, bd, w2t, b2, out, B, H, W, Cin,
+                              Ch, Cout, residual, slope, s);
+      case 16:
+        return launch_fp32<16>(x, w1t, b1, kd, bd, w2t, b2, out, B, H, W, Cin,
+                               Ch, Cout, residual, slope, s);
+    }
+  }
   if (dtype == kBFloat16) {
     switch (pick_nt(Cout)) {
       case 4:
@@ -938,6 +1560,24 @@ extern "C" int calipsync_fused_ir(const void* x, const void* w1t,
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef CALIPSYNC_FP32_STAMPS
+// The fp32 kernel's clock64() cycles by phase (warp 0 of every block,
+// barrier waits included) summed since the last call, then zeroed:
+// 0 chunk wait + barrier, 1 fence and barrier after the split, 2
+// expand, 3 depthwise + project, 4 epilogue and x staging, 5 the barrier
+// after the expand, 6 the next chunk's weight copies issued, 7 the split. Built only into the phase library (kernels/bench.py
+// --fp32-phases), never into the main path's.
+extern "C" int calipsync_fused_ir_fp32_stamps(unsigned long long* host) {
+  using namespace calipsync;
+  cudaError_t e = cudaMemcpyFromSymbol(host, fp32_path::g_stamps,
+                                       8 * sizeof(unsigned long long));
+  const unsigned long long zero[8] = {};
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(fp32_path::g_stamps, zero, sizeof(zero));
+  return static_cast<int>(e);
+}
+#endif
 
 #ifdef CALIPSYNC_FUSED_IR_BISECT
 // The bf16 kernel stopped after stage `stop` (0-2; 3 is the full kernel;

@@ -11,6 +11,12 @@ Counterpart of calipsync_tpu/kernels/fused_ir.py
 
 with fp32 accumulation and w1, kd, w2 cast to x.dtype first.
 
+On the card both dtypes run tensor-core kernels. In fp32 (what ``infer``
+and ``serve`` run by default) each 1x1 product is three TF32 passes,
+a_hi.b_hi + a_hi.b_lo + a_lo.b_hi with a = a_hi + a_lo split by
+``cvt.rna``, which keeps fp32 accuracy; ``fused_inverted_residual_tf32x3``
+is that arithmetic in plain PyTorch, for the CPU tests.
+
 ``fused_inverted_residual`` calls the op ``calipsync::fused_ir``
 (``torch.library``), whose CUDA implementation launches the kernel and
 whose CPU implementation is the plain version: an explicit dispatch on
@@ -49,9 +55,53 @@ def fused_inverted_residual_plain(x, w1, b1, kd, bd, w2, b2, *,
                                   residual: bool = False) -> torch.Tensor:
     """The block in plain PyTorch, with the kernel's fold and cast points
     (mirror of the JAX ``fused_inverted_residual_reference``)."""
+    return _block(x, w1, b1, kd, bd, w2, b2, residual, torch.matmul)
+
+
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to TF32 (10 stored mantissa bits) as the card's
+    ``cvt.rna.tf32.f32`` rounds: to nearest, ties away from zero, on the
+    bits (half a TF32 ulp added to the magnitude, the 13 low bits
+    cleared)."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """a @ b (fp32) as the TF32 tensor cores compute it: each operand split
+    into a TF32 high part and a TF32 remainder, and three products of TF32
+    values summed in fp32 (lo.hi + hi.lo + hi.hi, the fp32 kernel's
+    order); ``passes=1`` is the single TF32 product hi.hi. Products of
+    TF32 values are exact in fp32, so only the order of the sums differs
+    from the card."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def fused_inverted_residual_tf32x3(x, w1, b1, kd, bd, w2, b2, *,
+                                   residual: bool = False,
+                                   passes: int = 3) -> torch.Tensor:
+    """The fp32 CUDA kernel's arithmetic in plain PyTorch: the plain
+    version with both 1x1 products through ``matmul_tf32`` (``passes=1``:
+    one TF32 product each, the accuracy the split buys back). fp32 only."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"the TF32 mirror takes fp32, not {x.dtype}")
+    return _block(x, w1, b1, kd, bd, w2, b2, residual,
+                  lambda a, b: matmul_tf32(a, b, passes))
+
+
+def _block(x, w1, b1, kd, bd, w2, b2, residual, mm) -> torch.Tensor:
+    """The block with its 1x1 products computed by ``mm`` (fp32 in and
+    out)."""
     dtype = x.dtype
     ch = w1.shape[1]
-    hid = x.float() @ w1.to(dtype).float()
+    hid = mm(x.float(), w1.to(dtype).float())
     hid = _leaky(hid + b1.float()).to(dtype)
     b, h, w, _ = hid.shape
     hidp = torch.nn.functional.pad(hid.float(), (0, 0, 1, 1, 1, 1))
@@ -61,7 +111,7 @@ def fused_inverted_residual_plain(x, w1, b1, kd, bd, w2, b2, *,
         for dc in range(3):
             acc = acc + hidp[:, dr:dr + h, dc:dc + w, :] * kd9[dr * 3 + dc]
     y = _leaky(acc + bd.float()).to(dtype)
-    out = y.float() @ w2.to(dtype).float()
+    out = mm(y.float(), w2.to(dtype).float())
     out = _leaky(out + b2.float()).to(dtype)
     if residual:
         out = out + x
@@ -76,7 +126,7 @@ def _kernel_fns():
     global _FN, _SMEM
     if _FN is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _SMEM = _build.function("calipsync_fused_ir_smem", [i] * 6,
+        _SMEM = _build.function("calipsync_fused_ir_smem", [i] * 7,
                                 restype=ctypes.c_longlong)
         _FN = _build.function("calipsync_fused_ir",
                               [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
@@ -95,9 +145,9 @@ def fused_inverted_residual(x: torch.Tensor, w1: torch.Tensor,
     x (B,H,W,Cin) NHWC float32 or bfloat16; w1 (Cin,Ch); b1 (Ch,);
     kd (9,Ch) or (3,3,Ch) [3x3 taps row-major]; bd (Ch,); w2 (Ch,Cout);
     b2 (Cout,). Returns (B,H,W,Cout) in x.dtype. ``residual`` adds x
-    (Cin == Cout). On the card, bf16 runs the tensor-core kernel (Cout at
-    most 128) and fp32 the CUDA-core kernel. Not differentiable: a
-    backward through it raises.
+    (Cin == Cout). On the card both dtypes run tensor-core kernels (Cout
+    at most 128; fp32 products as three TF32 passes, at fp32 accuracy).
+    Not differentiable: a backward through it raises.
     """
     if residual and w1.shape[0] != w2.shape[1]:
         raise ValueError("residual needs cin == cout")
@@ -130,9 +180,9 @@ def _fused_ir_cuda(x, w1, b1, kd, bd, w2, b2, residual):
     dtype, dev = x.dtype, x.device
     code = _build.dtype_code(dtype)
     fn, smem = _kernel_fns()
-    need = smem(h, w, cin, ch, cout, code)
+    need = smem(b, h, w, cin, ch, cout, code)
     if need == -1:
-        raise ValueError(f"fused_inverted_residual: the {dtype} kernel takes "
+        raise ValueError(f"fused_inverted_residual: the kernel takes "
                          f"Cout <= 128, not {cout}")
     if need < 0 or need > MAX_SMEM:
         raise ValueError(f"fused_inverted_residual: no tiling of Cin={cin}, "

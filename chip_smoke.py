@@ -315,6 +315,8 @@ def check_kernels(torch, table):
         flat[1:].copy_(x.flatten())
         return flat[1:].view(x.shape)
 
+    FP32 = "fp32 only"
+
     def attn_args(b, n, d, c):
         return (t((b, n, d), 0.3), t((b, n, d), 0.3), t((b, n, c))), {}
 
@@ -333,7 +335,19 @@ def check_kernels(torch, table):
                      ir_args((2, 40, 40, 256), 512, 64, False),
                      ir_args((BATCH, 40, 40, 256), 512, 64, False),
                      ir_args((2, 50, 70, 32), 64, 32, True),
-                     ir_args((2, 11, 5, 16), 32, 16, True)],
+                     ir_args((2, 11, 5, 16), 32, 16, True),
+                     # fp32 at the default path's B=8: its largest-Cin
+                     # launch (weights streamed), its largest map, and a
+                     # tile straddling the right and bottom edges; then
+                     # chunks of 16 with an odd count of 64-row blocks,
+                     # and at B=128 many tiles a block (the stem's 8-byte
+                     # rows; a residual)
+                     ir_args((8, 40, 40, 256), 512, 64, False) + (FP32,),
+                     ir_args((8, 160, 160, 64), 128, 32, False) + (FP32,),
+                     ir_args((8, 37, 45, 32), 64, 32, True) + (FP32,),
+                     ir_args((8, 40, 40, 192), 384, 64, False) + (FP32,),
+                     ir_args((BATCH, 160, 160, 6), 12, 32, False) + (FP32,),
+                     ir_args((BATCH, 80, 80, 32), 64, 32, True) + (FP32,)],
         # the largest main-path launch; C 12 and 5 (the simple kernel);
         # C a multiple of 8 but not of the 64-channel slab, both strides;
         # a stride-2 launch whose last boxes take the bottom and right pad;
@@ -361,8 +375,11 @@ def check_kernels(torch, table):
         k = table[name]
         worst = 0.0
         for args, kw, *prep in arg_list:
-            for dtype, tol in ((torch.float32, TOL_FP32),
-                               (torch.bfloat16, TOL_BF16)):
+            dtypes = ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16))
+            if FP32 in prep:
+                prep.remove(FP32)
+                dtypes = dtypes[:1]
+            for dtype, tol in dtypes:
                 # the wrappers cast weights themselves; activations carry
                 # the dtype
                 a = ([x.to(dtype) for x in args] if name == "cross_attention"
@@ -4393,19 +4410,27 @@ def print_kernel_resources(_build):
               f"(box {p.box_h}x{p.box_w}x{p.slab}), {p.segments} runs of "
               f"rows, {p.stages} stages, {p.threads} threads, "
               f"{p.blocks_per_sm} blocks/SM, dynamic smem {p.smem} B")
-    plan = _build.function("calipsync_fused_ir_plan", [i] * 5 +
+    from calipsync_tpu_torch.config import InferConfig
+
+    plan = _build.function("calipsync_fused_ir_plan", [i] * 7 +
                            [ctypes.c_void_p])
-    for hw, cin, ch, cout in [(160, 6, 12, 32), (80, 64, 128, 64),
-                              (40, 128, 256, 128), (40, 256, 512, 64),
-                              (40, 64, 128, 64), (80, 128, 256, 32),
-                              (80, 32, 64, 32), (160, 64, 128, 32),
-                              (160, 32, 64, 32)]:
-        out = (ctypes.c_int * 7)()
-        plan(hw, hw, cin, ch, cout, ctypes.addressof(out))
-        print(f"  fused_ir {hw}x{hw} {cin}->{ch}->{cout}: tile {out[0]}x"
-              f"{out[1]} ({out[2]} haloed rows), weights "
-              f"{'resident' if out[3] else 'streamed'}, dynamic smem "
-              f"{out[4]} B, {out[5]} blocks/SM")
+    codes = _build.DTYPE_CODES
+    for dtype, b in (("bf16", BATCH), ("fp32", InferConfig().batch_size),
+                     ("fp32", BATCH)):
+        code = codes["torch.bfloat16" if dtype == "bf16" else "torch.float32"]
+        for hw, cin, ch, cout in [(160, 6, 12, 32), (80, 64, 128, 64),
+                                  (40, 128, 256, 128), (40, 256, 512, 64),
+                                  (40, 64, 128, 64), (80, 128, 256, 32),
+                                  (80, 32, 64, 32), (160, 64, 128, 32),
+                                  (160, 32, 64, 32)]:
+            out = (ctypes.c_int * 9)()
+            plan(b, hw, hw, cin, ch, cout, code, ctypes.addressof(out))
+            print(f"  fused_ir {dtype} B={b} {hw}x{hw} {cin}->{ch}->{cout}: "
+                  f"tile {out[0]}x{out[1]} ({out[2]} haloed rows), weights "
+                  f"{'resident' if out[3] else 'streamed'}, dynamic smem "
+                  f"{out[4]} B, {out[5]} blocks/SM"
+                  + (f", chunks of {out[8]}, Cout's n tiles in {out[7]} "
+                     f"groups" if dtype == "fp32" else ""))
 
 
 def audio_to_video(torch, seed: int, metrics: dict, tmp: str):

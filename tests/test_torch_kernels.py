@@ -23,9 +23,30 @@ from calipsync_tpu_torch.kernels.cross_attention import \
     cross_attention_plain
 from calipsync_tpu_torch.kernels import depthwise as port_dw
 from calipsync_tpu_torch.kernels.depthwise import fold_bn
-from calipsync_tpu_torch.kernels.fused_ir import fold_ir_params
+from calipsync_tpu_torch.kernels.fused_ir import (
+    fold_ir_params, fused_inverted_residual_plain,
+    fused_inverted_residual_tf32x3, tf32_rna)
+from calipsync_tpu_torch.kernels.measure import TOL_FP32, max_err
 
 RTOL, ATOL = 1e-3, 1e-5
+# The generator's nine fused-IR launches, (Cin, Ch, Cout, residual) as the
+# main path calls them, with a map of at most 16x16 for each level
+# (160x160, 80x80, 40x40).
+PATH_IR = [(6, 12, 32, False, 16), (64, 128, 32, False, 16),
+           (32, 64, 32, True, 16), (64, 128, 64, True, 12),
+           (128, 256, 32, False, 12), (32, 64, 32, True, 12),
+           (128, 256, 128, True, 8), (256, 512, 64, False, 8),
+           (64, 128, 64, True, 8)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs beside other workers, and
+    more threads spend more CPU for about the same wall time here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -200,6 +221,76 @@ def test_fused_ir_matches_pallas(shape, ch, cout, residual, block_h):
     out = fused_inverted_residual(_t(x), *map(_t, w), residual=residual)
     assert tuple(out.shape) == tuple(ref.shape)
     _close(out, ref)
+
+
+def _path_ir_inputs(cin, ch, cout, hw):
+    """B=1 inputs of one path launch, the weights at 1/sqrt(fan-in) as
+    the generator's are."""
+    rng = np.random.default_rng(cin + ch + cout)
+    x = rng.standard_normal((1, hw, hw, cin)).astype(np.float32)
+    return x, (rng.standard_normal((cin, ch)).astype(np.float32) * cin ** -0.5,
+               rng.standard_normal(ch).astype(np.float32) * 0.1,
+               rng.standard_normal((9, ch)).astype(np.float32) / 3,
+               rng.standard_normal(ch).astype(np.float32) * 0.1,
+               rng.standard_normal((ch, cout)).astype(np.float32) * ch ** -0.5,
+               rng.standard_normal(cout).astype(np.float32) * 0.1)
+
+
+@pytest.mark.parametrize("cin,ch,cout,residual,hw", PATH_IR)
+def test_fused_ir_tf32x3_mirror_matches_pallas(cin, ch, cout, residual, hw):
+    """The fp32 CUDA kernel's arithmetic (both 1x1 products as three TF32
+    passes, split as cvt.rna rounds) against the Pallas kernel at the
+    repo's bar, and against the exact plain version at TOL_FP32, the bar
+    the kernel meets on the card."""
+    x, w = _path_ir_inputs(cin, ch, cout, hw)
+    ref = jax_ir.fused_inverted_residual(
+        jnp.asarray(x), *map(jnp.asarray, w), residual=residual)
+    args = (_t(x), *map(_t, w))
+    out = fused_inverted_residual_tf32x3(*args, residual=residual)
+    _close(out, ref)
+    err, ok = max_err(out, fused_inverted_residual_plain(
+        *args, residual=residual), TOL_FP32)
+    assert ok, err
+
+
+def test_tf32_rna_rounds_as_cvt():
+    """cvt.rna.tf32.f32: to nearest, ties away from zero, 13 low bits
+    clear; the split's two parts sum to v within 2^-22 of |v|."""
+    one = 2.0 ** -10  # a TF32 ulp at 1
+    v = torch.tensor([1.0, 1 + one / 2, 1 + 3 * one / 2, -(1 + one / 2),
+                      1 + one / 2 - 2.0 ** -23, 3.0e38, -0.0, 1e-40])
+    want = [1.0, 1 + one, 1 + 2 * one, -(1 + one), 1.0, 3.0e38, -0.0,
+            None]
+    got = tf32_rna(v)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    for g, w_ in zip(got.tolist(), want):
+        if w_ is not None and w_ != 3.0e38:
+            assert g == w_
+    assert abs(got[5].item() - 3.0e38) <= 3.0e38 * 2.0 ** -11
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32))
+    hi = tf32_rna(x)
+    lo = tf32_rna(x - hi)
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -22).all()
+
+
+def test_one_tf32_pass_misses_fp32_accuracy():
+    """The reason for the kernel's three passes: at the path's nine widths
+    one TF32 product (hi.hi) misses TOL_FP32 against the exact plain
+    version, three meet it. Prints the worst errors (``-s``)."""
+    worst = {1: 0.0, 3: 0.0}
+    for cin, ch, cout, residual, hw in PATH_IR:
+        x, w = _path_ir_inputs(cin, ch, cout, hw)
+        args = (_t(x), *map(_t, w))
+        plain = fused_inverted_residual_plain(*args, residual=residual)
+        for passes in worst:
+            err, ok = max_err(fused_inverted_residual_tf32x3(
+                *args, residual=residual, passes=passes), plain, TOL_FP32)
+            assert ok == (passes == 3), (cin, ch, cout, passes, err)
+            worst[passes] = max(worst[passes], err)
+    print(f"worst max abs error against the plain fp32 version at the "
+          f"path's widths: one TF32 pass {worst[1]:.3g}, three "
+          f"{worst[3]:.3g}")
 
 
 def test_fused_ir_edges_are_zero_padded_hidden():
