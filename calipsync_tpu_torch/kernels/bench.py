@@ -3,7 +3,7 @@ the fused-IR stage bisect, on one GPU.
 
     python -m calipsync_tpu_torch.kernels.bench [--dtype bfloat16|float32]
         [--batch N] [--bisect] [--dw-sweep] [--fp32-phases] [--serving]
-        [--out PATH]
+        [--infer-walls N] [--out PATH]
 
 Builds the kernels and records the kernel calls of one generator forward
 (random weights from seed 0) in ``--dtype`` at ``--batch`` (bf16 at
@@ -34,8 +34,10 @@ of rows, 2-4 stages), each checked against the plain version first; the
 device time of the planned and simple kernels comes from torch.profiler.
 With ``--fp32-phases`` (``--dtype float32``) it builds a library whose
 fp32 fused-IR kernel adds warp 0's clock64() cycles by phase to device
-counters, and reads each fused-IR launch's shares. Results also go to
-``--out`` as JSON.
+counters, and reads each fused-IR launch's shares. With ``--infer-walls
+N`` it times only the default ``infer`` (no config file: fp32 at B=8) as
+``chip_smoke.py`` 6d runs it, the CLI in a subprocess, N times on a 20 s
+wav, on seeded assets. Results also go to ``--out`` as JSON.
 
 Without ``--bisect`` or ``--dw-sweep`` the script needs only the wrappers
 and the generator, so it times an earlier tree's kernels on the same
@@ -230,6 +232,55 @@ def serving(model, streams: int = 16, window: int = 25, ticks: int = 8,
     return out
 
 
+def infer_walls(runs: int, seconds: float = 20.0) -> list[dict]:
+    """The default ``infer`` (see the docstring) ``runs`` times: each
+    run's wall seconds (start-up, loading 1.26 GB of HuBERT-large,
+    featurize, synthesize, encode) and the JSON line it prints. The
+    assets: random HuBERT-large weights in the HF layout, the generator
+    (both from seed 0), a 40-frame 480x480 speaker and a speech-like
+    wav."""
+    import sys
+    import tempfile
+
+    from ..audio.io import save_wav
+    from ..bench_assets import make_synthetic_speaker, speech_like_wav
+    from ..core.weights import (from_jax_generator, from_jax_hubert,
+                                random_jax_generator, random_jax_hubert)
+    from ..nn.hubert import HubertConfig
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = HubertConfig.large()
+        hub = os.path.join(tmp, "hubert")
+        os.makedirs(hub)
+        torch.save(from_jax_hubert(random_jax_hubert(cfg, seed=0), cfg),
+                   os.path.join(hub, "pytorch_model.bin"))
+        with open(os.path.join(hub, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        ckpt = os.path.join(tmp, "generator.pth")
+        torch.save(from_jax_generator(random_jax_generator(seed=0)), ckpt)
+        data = make_synthetic_speaker(os.path.join(tmp, "speaker"),
+                                      n_frames=40, res=480)
+        wav = os.path.join(tmp, "a.wav")
+        save_wav(wav, speech_like_wav(seconds, 4), 16_000)
+        for i in range(runs):
+            cmd = [sys.executable, "-m", "calipsync_tpu_torch.cli", "infer",
+                   "--assets", data, "--ckpt", ckpt, "--hubert", hub,
+                   "--audio", wav, "--out", os.path.join(tmp, f"{i}.mp4"),
+                   "--seed", "0"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  cwd=root, timeout=600, check=True)
+            rows.append(dict(wall_s=time.perf_counter() - t0,
+                             result=json.loads(
+                                 proc.stdout.strip().splitlines()[-1])))
+            print(f"default infer run {i}: {rows[-1]['wall_s']:.2f} s, "
+                  f"{rows[-1]['result']}")
+    return rows
+
+
 def bisect_fn():
     """calipsync_fused_ir_bisect of the library built with the stage
     variants."""
@@ -389,6 +440,7 @@ def main() -> int:
     ap.add_argument("--dw-sweep", action="store_true")
     ap.add_argument("--serving", action="store_true")
     ap.add_argument("--fp32-phases", action="store_true")
+    ap.add_argument("--infer-walls", type=int, default=0, metavar="N")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--batch", type=int, default=BATCH)
@@ -407,6 +459,12 @@ def main() -> int:
     print(smi)
     _, build_s = _build.build()
     print(f"kernel build: {build_s:.1f} s")
+    if args.infer_walls:
+        rows = infer_walls(args.infer_walls)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"device": smi, "default_infer": rows}, f, indent=1)
+        return 0
     stop_fn = bisect_fn() if args.bisect else None
     phase_fns = fp32_phases_fns() if args.fp32_phases else None
     timer = measure.Timer()
